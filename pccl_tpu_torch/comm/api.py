@@ -1,0 +1,534 @@
+"""High-level Python API over the native core.
+
+The part of the pcclt surface the sync-DiLoCo peer calls: Communicator,
+MasterNode, host TensorInfo/SharedState, and the PcclError family. Collective
+ops raise PcclError subclasses on peer churn and the caller retries after
+update_topology().
+
+The native core reads and writes host memory only. A tensor on a CUDA card
+is staged through a host buffer by the caller (parallel/diloco.py does it
+with one pinned buffer); `TensorInfo.from_torch` therefore takes CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import enum
+import threading
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from . import _native
+
+
+class Result(enum.IntEnum):
+    SUCCESS = 0
+    INVALID_ARGUMENT = 1
+    NOT_CONNECTED = 2
+    CONNECTION_LOST = 3
+    OPERATION_ABORTED = 4
+    TOO_FEW_PEERS = 5
+    DUPLICATE_TAG = 6
+    KICKED = 7
+    MASTER_UNREACHABLE = 8
+    INTERNAL_ERROR = 9
+    CONTENT_MISMATCH = 10
+    PENDING_ASYNC_OPS = 11
+    INVALID_USAGE = 12
+
+
+class DataType(enum.IntEnum):
+    UINT8 = 0
+    INT8 = 1
+    UINT16 = 2
+    INT16 = 3
+    UINT32 = 4
+    INT32 = 5
+    UINT64 = 6
+    INT64 = 7
+    FLOAT16 = 8
+    BFLOAT16 = 9
+    FLOAT32 = 10
+    FLOAT64 = 11
+
+
+class DeviceType(enum.IntEnum):
+    # the C enum (pcclt.h); CUDA tensors are staged to the host, so they
+    # enter the core as HOST
+    HOST = 0
+    TPU = 1
+
+
+class ReduceOp(enum.IntEnum):
+    SUM = 0
+    AVG = 1
+    PROD = 2
+    MAX = 3
+    MIN = 4
+
+
+class QuantizationAlgorithm(enum.IntEnum):
+    NONE = 0
+    MIN_MAX = 1
+    ZERO_POINT_SCALE = 2
+
+
+class SharedStateSyncStrategy(enum.IntEnum):
+    ENFORCE_POPULAR = 0
+    RECEIVE_ONLY = 1
+    SEND_ONLY = 2
+
+
+class Attribute(enum.IntEnum):
+    GLOBAL_WORLD_SIZE = 0
+    PEER_GROUP_WORLD_SIZE = 1
+    NUM_DISTINCT_PEER_GROUPS = 2
+    LARGEST_PEER_GROUP_WORLD_SIZE = 3
+    MASTER_EPOCH = 4
+    RECONNECT_COUNT = 5
+    SHARED_STATE_REVISION = 6
+
+
+_NP_TO_DTYPE = {
+    np.dtype(np.uint8): DataType.UINT8,
+    np.dtype(np.int8): DataType.INT8,
+    np.dtype(np.uint16): DataType.UINT16,
+    np.dtype(np.int16): DataType.INT16,
+    np.dtype(np.uint32): DataType.UINT32,
+    np.dtype(np.int32): DataType.INT32,
+    np.dtype(np.uint64): DataType.UINT64,
+    np.dtype(np.int64): DataType.INT64,
+    np.dtype(np.float16): DataType.FLOAT16,
+    np.dtype(np.float32): DataType.FLOAT32,
+    np.dtype(np.float64): DataType.FLOAT64,
+}
+
+
+def _np_dtype_of(arr: np.ndarray) -> DataType:
+    try:
+        return _NP_TO_DTYPE[arr.dtype]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {arr.dtype}") from None
+
+
+# ---------------------------------------------------------------- exceptions
+
+class PcclError(RuntimeError):
+    """Base error; .result carries the native status code."""
+
+    def __init__(self, result: Result, what: str = ""):
+        self.result = Result(result)
+        super().__init__(f"{self.result.name}{': ' + what if what else ''}")
+
+
+class ConnectionLostError(PcclError):
+    """A peer died mid-op; re-establish with update_topology() and retry."""
+
+
+class OperationAbortedError(PcclError):
+    """The op was aborted group-wide; retry after update_topology()."""
+
+
+class TooFewPeersError(PcclError):
+    """world < 2 — wait for peers to join, then retry."""
+
+
+class KickedError(PcclError):
+    """The master kicked this peer (protocol violation or state mismatch)."""
+
+
+class MasterUnreachableError(PcclError):
+    pass
+
+
+def _check(code: int, what: str = "") -> None:
+    if code == Result.SUCCESS:
+        return
+    r = Result(code)
+    cls = {
+        Result.CONNECTION_LOST: ConnectionLostError,
+        Result.OPERATION_ABORTED: OperationAbortedError,
+        Result.TOO_FEW_PEERS: TooFewPeersError,
+        Result.KICKED: KickedError,
+        Result.MASTER_UNREACHABLE: MasterUnreachableError,
+    }.get(r, PcclError)
+    raise cls(r, what)
+
+
+# ---------------------------------------------------------------- master
+
+class MasterNode:
+    """Standalone orchestration master: control plane only, bulk data never
+    flows through it. ``journal_path`` enables master HA (a restarted master
+    on the same journal resumes the world under a bumped epoch); ``None``
+    falls back to the ``PCCLT_MASTER_JOURNAL`` env var."""
+
+    def __init__(self, listen_address: str = "0.0.0.0", port: int = 48501,
+                 journal_path: Optional[str] = None):
+        self._lib = _native.load()
+        handle = ctypes.c_void_p()
+        _check(self._lib.pccltCreateMasterEx(
+            listen_address.encode(), port,
+            journal_path.encode() if journal_path is not None else None,
+            ctypes.byref(handle)), "create master")
+        self._h = handle
+
+    def run(self) -> None:
+        _check(self._lib.pccltRunMaster(self._h), "run master")
+
+    @property
+    def port(self) -> int:
+        return int(self._lib.pccltMasterPort(self._h))
+
+    @property
+    def epoch(self) -> int:
+        """1 fresh (or journal-less), +1 on every journaled restart."""
+        return int(self._lib.pccltMasterEpoch(self._h))
+
+    def interrupt(self) -> None:
+        _check(self._lib.pccltInterruptMaster(self._h))
+
+    def await_termination(self) -> None:
+        _check(self._lib.pccltMasterAwaitTermination(self._h))
+
+    def destroy(self) -> None:
+        if self._h:
+            self._lib.pccltDestroyMaster(self._h)
+            self._h = None
+
+    def __enter__(self) -> "MasterNode":
+        self.run()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.interrupt()
+        self.destroy()
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass
+
+
+# ---------------------------------------------------------------- tensors
+
+@dataclass
+class TensorInfo:
+    """One named shared-state entry over a host buffer the native core
+    reads and writes in place. Keeps the buffer alive."""
+
+    name: str
+    data: np.ndarray
+    dtype: DataType
+    device: DeviceType = DeviceType.HOST
+    allow_content_inequality: bool = False
+    updated: bool = False   # set by sync_shared_state: content was received
+
+    @staticmethod
+    def from_numpy(name: str, arr: np.ndarray,
+                   allow_content_inequality: bool = False) -> "TensorInfo":
+        if not arr.flags["C_CONTIGUOUS"]:
+            raise ValueError("array must be C-contiguous")
+        if not arr.flags["WRITEABLE"]:
+            raise ValueError("array must be writable (sync writes into it)")
+        return TensorInfo(name, arr, _np_dtype_of(arr), DeviceType.HOST,
+                          allow_content_inequality)
+
+    @staticmethod
+    def from_torch(name: str, tensor,
+                   allow_content_inequality: bool = False) -> "TensorInfo":
+        """A CPU tensor's storage, shared with the entry (sync writes land
+        in the tensor). A CUDA tensor is refused: stage it to the host."""
+        if tensor.device.type != "cpu":
+            raise ValueError("torch tensor must be on CPU (stage a CUDA "
+                             "tensor through a host buffer first)")
+        return TensorInfo.from_numpy(name, tensor.detach().numpy(),
+                                     allow_content_inequality)
+
+    def _as_c(self, keepalive: list) -> _native.TensorInfoC:
+        name_b = self.name.encode()
+        keepalive.append(name_b)
+        return _native.TensorInfoC(
+            name=name_b,
+            data=self.data.ctypes.data_as(ctypes.c_void_p),
+            count=self.data.size,
+            dtype=int(self.dtype),
+            device=int(self.device),
+            allow_content_inequality=1 if self.allow_content_inequality else 0,
+            precomputed_hash=0,
+            has_precomputed_hash=0,
+            materialize=_native.MaterializeFn(),
+            materialize_ctx=None,
+            updated=0,
+        )
+
+
+@dataclass
+class SharedState:
+    """Revisioned named tensor set, synced bit-identically across peers."""
+
+    infos: Sequence[TensorInfo]
+    revision: int = 0
+
+
+@dataclass
+class SharedStateSyncInfo:
+    tx_bytes: int
+    rx_bytes: int
+    revision: int
+
+
+@dataclass
+class ReduceInfo:
+    tx_bytes: int
+    rx_bytes: int
+    world_size: int
+
+
+@dataclass
+class ReduceDescriptor:
+    """Per-op config: wire tag, reduction, optional on-the-wire
+    quantization."""
+
+    tag: int = 0
+    op: ReduceOp = ReduceOp.SUM
+    quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE
+    quantized_dtype: DataType = DataType.UINT8
+
+    def _as_c(self) -> _native.ReduceDescriptor:
+        return _native.ReduceDescriptor(
+            tag=self.tag, op=int(self.op), quant_algo=int(self.quantization),
+            quant_dtype=int(self.quantized_dtype))
+
+
+class AsyncReduceHandle:
+    """Handle for an in-flight all-reduce. Holds buffer references so the
+    native op never outlives its memory."""
+
+    def __init__(self, comm: "Communicator", tag: int, keepalive: tuple):
+        self._comm = comm
+        self._tag = tag
+        self._keepalive = keepalive
+        self._done = False
+
+    def wait(self) -> ReduceInfo:
+        if self._done:
+            raise PcclError(Result.INVALID_USAGE, "handle already awaited")
+        self._done = True
+        info = _native.ReduceInfo()
+        code = self._comm._lib.pccltAwaitAsyncReduce(
+            self._comm._h, self._tag, ctypes.byref(info))
+        self._keepalive = ()
+        _check(code, f"await reduce tag={self._tag}")
+        return ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
+
+
+# ---------------------------------------------------------------- communicator
+
+class Communicator:
+    """One peer of the collective.
+
+        comm = Communicator("10.0.0.1", 48501)
+        comm.connect()
+        while training:
+            comm.update_topology()          # admit joiners / adopt new ring
+            try:
+                comm.all_reduce(vec, op=ReduceOp.AVG)
+            except (ConnectionLostError, OperationAbortedError):
+                continue                    # world shrank; retry
+    """
+
+    # auto tags live in a high band, disjoint from the blocking default 0,
+    # small user tags and the MultipleWithRetry band
+    _AUTO_TAG_BASE = 1 << 32
+    _RETRY_TAG_BASE = 1 << 16
+
+    def __init__(self, master_ip: str, master_port: int = 48501, *,
+                 peer_group: int = 0, advertised_ip: Optional[str] = None,
+                 p2p_port: int = 0, ss_port: int = 0, bench_port: int = 0,
+                 p2p_connection_pool_size: int = 1,
+                 reconnect_attempts: Optional[int] = None,
+                 reconnect_backoff_ms: int = 0,
+                 reconnect_backoff_cap_ms: int = 0):
+        self._lib = _native.load()
+        params = _native.CommCreateParams(
+            master_ip=master_ip.encode(),
+            master_port=master_port,
+            peer_group=peer_group,
+            advertised_ip=advertised_ip.encode() if advertised_ip else None,
+            p2p_port=p2p_port,
+            ss_port=ss_port,
+            bench_port=bench_port,
+            p2p_connection_pool_size=p2p_connection_pool_size,
+            reconnect_attempts=(-1 if reconnect_attempts is None
+                                else reconnect_attempts),
+            reconnect_backoff_ms=reconnect_backoff_ms,
+            reconnect_backoff_cap_ms=reconnect_backoff_cap_ms,
+        )
+        handle = ctypes.c_void_p()
+        _check(self._lib.pccltCreateCommunicator(ctypes.byref(params),
+                                                 ctypes.byref(handle)))
+        self._h = handle
+        self._tag_lock = threading.Lock()
+        self._next_tag = self._AUTO_TAG_BASE
+
+    # -- lifecycle --
+
+    def connect(self) -> None:
+        _check(self._lib.pccltConnect(self._h), "connect")
+
+    def destroy(self) -> None:
+        if self._h:
+            self._lib.pccltDestroyCommunicator(self._h)
+            self._h = None
+
+    def __enter__(self) -> "Communicator":
+        self.connect()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.destroy()
+
+    def __del__(self):
+        try:
+            self.destroy()
+        except Exception:
+            pass
+
+    # -- membership / topology --
+
+    def get_attribute(self, attr: Attribute) -> int:
+        out = ctypes.c_int64()
+        _check(self._lib.pccltGetAttribute(self._h, int(attr), ctypes.byref(out)))
+        return out.value
+
+    @property
+    def world_size(self) -> int:
+        return self.get_attribute(Attribute.PEER_GROUP_WORLD_SIZE)
+
+    def update_topology(self) -> None:
+        _check(self._lib.pccltUpdateTopology(self._h), "update topology")
+
+    def are_peers_pending(self) -> bool:
+        out = ctypes.c_int()
+        _check(self._lib.pccltArePeersPending(self._h, ctypes.byref(out)))
+        return out.value != 0
+
+    # -- collectives --
+
+    def _auto_tag(self) -> int:
+        with self._tag_lock:
+            t = self._next_tag
+            self._next_tag += 1
+            return t
+
+    @staticmethod
+    def _buffers(send, recv):
+        # the buffer the native core writes into must be the caller's memory:
+        # a silent ascontiguousarray copy would discard the result
+        if recv is None:
+            if not isinstance(send, np.ndarray) or not send.flags["C_CONTIGUOUS"]:
+                raise ValueError(
+                    "in-place all_reduce requires a C-contiguous ndarray "
+                    "(pass a separate contiguous recv buffer otherwise)")
+            if not send.flags["WRITEABLE"]:
+                raise ValueError("in-place all_reduce requires a writable array")
+            return send, send
+        if not isinstance(recv, np.ndarray) or not recv.flags["C_CONTIGUOUS"]:
+            raise ValueError("recv must be a C-contiguous ndarray")
+        if not recv.flags["WRITEABLE"]:
+            raise ValueError("recv must be writable")
+        send = np.ascontiguousarray(send)  # send is read-only; a copy is fine
+        if recv.dtype != send.dtype or recv.size != send.size:
+            raise ValueError("recv buffer must match send dtype/size")
+        return send, recv
+
+    def all_reduce(self, send, recv=None, *, op: ReduceOp = ReduceOp.SUM,
+                   tag: int = 0,
+                   quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE,
+                   quantized_dtype: DataType = DataType.UINT8) -> ReduceInfo:
+        """Blocking ring all-reduce; recv=None reduces in place. Every group
+        member must call with the same tag. Raises ConnectionLostError /
+        OperationAbortedError on peer churn."""
+        send, recv = self._buffers(send, recv)
+        desc = ReduceDescriptor(tag, op, quantization, quantized_dtype)._as_c()
+        info = _native.ReduceInfo()
+        code = self._lib.pccltAllReduce(
+            self._h, send.ctypes.data_as(ctypes.c_void_p),
+            recv.ctypes.data_as(ctypes.c_void_p), send.size,
+            int(_np_dtype_of(send)), ctypes.byref(desc), ctypes.byref(info))
+        _check(code, "all_reduce")
+        return ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
+
+    def all_reduce_async(self, send, recv=None, *, op: ReduceOp = ReduceOp.SUM,
+                         tag: Optional[int] = None,
+                         quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE,
+                         quantized_dtype: DataType = DataType.UINT8) -> AsyncReduceHandle:
+        """Async variant. tag=None auto-allocates a locally increasing tag;
+        under dynamic membership pass the same explicit tag on every peer."""
+        send, recv = self._buffers(send, recv)
+        tag = tag if tag is not None else self._auto_tag()
+        desc = ReduceDescriptor(tag, op, quantization, quantized_dtype)._as_c()
+        code = self._lib.pccltAllReduceAsync(
+            self._h, send.ctypes.data_as(ctypes.c_void_p),
+            recv.ctypes.data_as(ctypes.c_void_p), send.size,
+            int(_np_dtype_of(send)), ctypes.byref(desc))
+        _check(code, "all_reduce_async")
+        return AsyncReduceHandle(self, tag, (send, recv))
+
+    def all_reduce_multiple_with_retry(self, tensors: Sequence,
+                                       *, op: ReduceOp = ReduceOp.SUM,
+                                       quantization: QuantizationAlgorithm =
+                                       QuantizationAlgorithm.NONE,
+                                       quantized_dtype: DataType = DataType.UINT8,
+                                       ) -> list[ReduceInfo]:
+        """Launch one in-place reduce per array, retrying as the world
+        shrinks until all succeed."""
+        for t in tensors:
+            if not isinstance(t, np.ndarray) or not t.flags["C_CONTIGUOUS"] \
+                    or not t.flags["WRITEABLE"]:
+                raise ValueError("tensors must be writable C-contiguous ndarrays "
+                                 "(reduced in place)")
+        arrs = list(tensors)
+        if not arrs:
+            return []
+        dt = _np_dtype_of(arrs[0])
+        if any(_np_dtype_of(a) != dt for a in arrs):
+            raise ValueError("all tensors must share a dtype")
+        n = len(arrs)
+        ptrs = (ctypes.c_void_p * n)(*[a.ctypes.data for a in arrs])
+        counts = (ctypes.c_uint64 * n)(*[a.size for a in arrs])
+        descs = (_native.ReduceDescriptor * n)()
+        for i in range(n):
+            # deterministic tags (reserved band + index): peers match ops
+            # by tag, so a late joiner must not drift from incumbents
+            descs[i] = ReduceDescriptor(self._RETRY_TAG_BASE + i, op,
+                                        quantization, quantized_dtype)._as_c()
+        infos = (_native.ReduceInfo * n)()
+        code = self._lib.pccltAllReduceMultipleWithRetry(
+            self._h, ptrs, ptrs, counts, int(dt), descs, n, infos)
+        _check(code, "all_reduce_multiple_with_retry")
+        return [ReduceInfo(i.tx_bytes, i.rx_bytes, i.world_size) for i in infos]
+
+    # -- shared state --
+
+    def sync_shared_state(self, state: SharedState,
+                          strategy: SharedStateSyncStrategy =
+                          SharedStateSyncStrategy.ENFORCE_POPULAR,
+                          ) -> SharedStateSyncInfo:
+        keepalive: list = []
+        infos = (_native.TensorInfoC * len(state.infos))()
+        for i, ti in enumerate(state.infos):
+            infos[i] = ti._as_c(keepalive)
+        st = _native.SharedStateC(revision=state.revision, count=len(state.infos),
+                                  infos=infos)
+        out = _native.SharedStateSyncInfo()
+        code = self._lib.pccltSynchronizeSharedState(
+            self._h, ctypes.byref(st), int(strategy), ctypes.byref(out))
+        _check(code, "sync_shared_state")
+        for i, ti in enumerate(state.infos):
+            ti.updated = bool(infos[i].updated)
+        return SharedStateSyncInfo(out.tx_bytes, out.rx_bytes, out.revision)

@@ -1,0 +1,107 @@
+"""Shared plumbing for the example training loops: connect to the master
+and wait for the world, admit joiners between steps, synthetic data, and
+the FINAL line.
+
+The data is synthetic: token t+1 is an affine function of token t plus 5%
+uniform noise, so next-token loss falls fast. It is drawn with numpy's
+RandomState, seeded per peer from its base port, exactly as the JAX
+examples draw it, so both packages train on the same tokens.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+
+def add_comm_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--master-ip", default="127.0.0.1")
+    ap.add_argument("--master-port", type=int, default=48500)
+    ap.add_argument("--base-port", type=int, default=56000,
+                    help="p2p/shared-state/bench listen ports (bump-allocated)")
+    ap.add_argument("--min-world", type=int, default=1,
+                    help="wait until this many peers joined before training")
+    ap.add_argument("--peer-group", type=int, default=0)
+    ap.add_argument("--connect-timeout", type=float, default=120.0,
+                    help="seconds to wait for --min-world peers")
+    ap.add_argument("--solo", action="store_true",
+                    help="run without a comm (single peer, no master)")
+    ap.add_argument("--data-shard", type=int, default=None,
+                    help="seed of this peer's synthetic data (default: the "
+                         "base port, as the JAX examples seed it), so that "
+                         "runs on OS-chosen ports draw the same tokens")
+
+
+def connect(args):
+    """Create + connect a Communicator and wait for --min-world peers.
+    Returns None under --solo."""
+    if args.solo:
+        return None
+    from pccl_tpu_torch.comm import Communicator
+
+    comm = Communicator(args.master_ip, args.master_port,
+                        peer_group=args.peer_group,
+                        p2p_port=args.base_port, ss_port=args.base_port + 4,
+                        bench_port=args.base_port + 8)
+    comm.connect()
+    deadline = time.time() + args.connect_timeout
+    while comm.world_size < args.min_world:
+        if time.time() > deadline:
+            raise TimeoutError(f"world never reached {args.min_world}")
+        if comm.are_peers_pending():
+            comm.update_topology()
+        time.sleep(0.02)
+    return comm
+
+
+def admit_pending(comm) -> None:
+    """Between-steps topology vote."""
+    if comm is not None and comm.are_peers_pending():
+        comm.update_topology()
+
+
+def synth_batch(rng: np.random.RandomState, batch: int, block: int,
+                vocab: int):
+    """Learnable synthetic LM data: x[t+1] = (5*x[t] + 7) % vocab, with 5%
+    uniform noise. Returns (tokens, targets) int32 [B, T]."""
+    x = np.empty((batch, block + 1), dtype=np.int64)
+    x[:, 0] = rng.randint(0, vocab, size=batch)
+    for t in range(block):
+        x[:, t + 1] = (5 * x[:, t] + 7) % vocab
+    noise = rng.rand(batch, block + 1) < 0.05
+    x[noise] = rng.randint(0, vocab, size=int(noise.sum()))
+    return x[:, :-1].astype(np.int32), x[:, 1:].astype(np.int32)
+
+
+def data_rng(args) -> np.random.RandomState:
+    """Per-peer data shard, seeded off --data-shard, or else off the peer's
+    unique base port."""
+    shard = args.base_port if args.data_shard is None else args.data_shard
+    return np.random.RandomState(1000 + (shard % 997))
+
+
+def quant_from_arg(name: str):
+    """Map the --quantize CLI choice to a QuantizationAlgorithm."""
+    from pccl_tpu_torch.comm import QuantizationAlgorithm
+
+    return {"none": QuantizationAlgorithm.NONE,
+            "minmax": QuantizationAlgorithm.MIN_MAX,
+            "zps": QuantizationAlgorithm.ZERO_POINT_SCALE}[name]
+
+
+def report_final(first_loss, last_loss, comm, require_descent: bool = True) -> int:
+    """Print the FINAL line and return the exit code (0 = loss fell, or
+    require_descent is off; None losses mean no step ran). FINAL goes out
+    before destroy, so a wedged teardown cannot hide it."""
+    if first_loss is None or last_loss is None:
+        print("FINAL no steps ran", flush=True)
+        code = 0
+    else:
+        print(f"FINAL first_loss={first_loss:.4f} last_loss={last_loss:.4f}",
+              flush=True)
+        code = 0 if last_loss < first_loss or not require_descent else 4
+    if comm is not None:
+        comm.destroy()
+    return code
