@@ -7,11 +7,13 @@ Phases, in order; any failure exits non-zero:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: the CUDA kernels (one nvcc per pccl_tpu_torch/csrc/*.cu, all at
    once, with ptxas resource reports) and, when no library is found,
-   libpcclt.so from pccl_tpu/native/src, in parallel;
+   libpcclt.so from pccl_tpu/native/src, in parallel. K1 and K3 must show
+   0 bytes of spills, and, where cuobjdump is found, HGMMA and UTMALDG
+   instructions in their SASS;
 3. kernels: K1 (forward), K2 (dq) and K3 (dk, dv) against their plain
    PyTorch versions (fp32 on the same bf16 inputs) at three shapes: the
    main path's, a GQA shape at head dim 128, and a ragged non-causal shape;
-   with median CUDA-event times of the kernel, the plain version,
+   with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take;
 4. model: a 2-layer GPT at GPT-2 widths in bf16 on the card, flash kernels
@@ -34,6 +36,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -54,9 +57,14 @@ KERNELS = [
      "pccl_tpu/ops/flash_attention.py:83"),
     ("flash_bwd_dq", "pccl_tpu_torch/csrc/flash_bwd.cu",
      "pccl_tpu/ops/flash_attention.py:195"),
-    ("flash_bwd_dkv", "pccl_tpu_torch/csrc/flash_bwd.cu",
+    ("flash_bwd_dkv", "pccl_tpu_torch/csrc/flash_bwd_dkv.cu",
      "pccl_tpu/ops/flash_attention.py:231"),
 ]
+# the kernels built on hopper.cuh (ptxas's mangled names, both head dims):
+# no spills, and wgmma (HGMMA) and TMA loads (UTMALDG) in their machine code
+REDESIGNED = {"flash_fwd": r"flash_fwd_kernelILi(64|128)E",
+              "flash_bwd_dkv": r"flash_bwd_dkv_kernelILi(64|128)E"}
+
 
 SHAPES = [
     ("main", dict(B=8, T=1024, H=12, Hkv=12, D=64, causal=True)),
@@ -76,6 +84,10 @@ TOL = {  # name: (rel, atol, rtol)
     "out": (1e-2, 0.15, 2 ** -8), "lse": (2e-7, 1e-6, 5e-7),
     "dq": (1e-2, 0.15, 2 ** -8), "dk": (1e-2, 0.15, 2 ** -8),
     "dv": (1e-2, 0.15, 2 ** -8)}
+
+# the first spin ahead of a timed batch: ~5 ms at the H100's 1.98 GHz boost
+# clock (cuda_ms doubles it where 20 calls' host work takes longer)
+HOST_LEAD_CYCLES = 10_000_000
 
 MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
 PEER_TIMEOUT_S = 600
@@ -98,6 +110,31 @@ def nvidia_smi_line() -> str:
 
 # ------------------------------------------------------------------ phase 2
 
+SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+
+
+def spills(report: str) -> dict:
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    ptxas -v output."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = SPILL.search(line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def sass_counts(lib: Path, cuobjdump: str) -> dict:
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+
+
 def phase_build() -> None:
     from pccl_tpu_torch.comm import _native
     from pccl_tpu_torch.ops import _build
@@ -110,29 +147,60 @@ def phase_build() -> None:
         report = kernels.result()
         lib = core.result() if core is not None else found
     for line in report.splitlines():
-        if re.search(r"Compiling entry|registers|spill", line):
+        if re.search(r"Compiling entry|registers|spill|warning", line):
             log(f"  ptxas: {line.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s (kernels in {_build.BUILD_DIR}; "
         f"libpcclt {'built' if core is not None else 'found'} at {lib})")
+    spilled = spills(report)
+    cuobjdump = shutil.which("cuobjdump") \
+        or str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    for name, fn in REDESIGNED.items():
+        entries = {e: sp for e, sp in spilled.items() if re.search(fn, e)}
+        if len(entries) != 2:  # Dh 64 and 128
+            raise SmokeError(f"ptxas reported {len(entries)} builds of {fn}, not 2")
+        bad = {e: sp for e, sp in entries.items() if sp != (0, 0)}
+        if bad:
+            raise SmokeError(f"{fn} spills (store, load bytes): {bad}")
+        if not Path(cuobjdump).exists():
+            log(f"  {name}: 0 bytes of spills; no cuobjdump, SASS not counted")
+            continue
+        counts = sass_counts(_build.BUILD_DIR / f"lib{name}.so", cuobjdump)
+        log(f"  {name}: 0 bytes of spills; SASS {counts}")
+        if not all(counts.values()):
+            raise SmokeError(f"{name}: no HGMMA or no UTMALDG in its SASS: {counts}")
 
 
 # ------------------------------------------------------------------ phase 3
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of fn() by CUDA events, one pair per call."""
+def cuda_ms(fn, calls: int = 20, pairs: int = 5, warmup: int = 3) -> float:
+    """Milliseconds per call of fn(): `calls` back-to-back calls between one
+    pair of CUDA events, divided by `calls`; the median of `pairs` such
+    batches, after `warmup` calls. Each batch is queued behind a spin on the
+    card, so that the host has queued every call before the first event
+    fires and the figure holds the card's time only, not the host's work
+    before each launch. A batch whose host side outlasted the spin is timed
+    again behind a spin twice as long."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cycles, times = HOST_LEAD_CYCLES, []
+    while len(times) < pairs:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        if host_ms >= s.elapsed_time(a):
+            cycles *= 2
+            continue
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -250,11 +318,11 @@ def phase_kernels() -> dict:
                                                               delta, causal)),
         }
         plain_ms = {
-            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(qf, kf, vf, causal), reps=5),
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(qf, kf, vf, causal), calls=3),
             "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_plain(
-                qf, kf, vf, dof, ref_lse, delta, causal), reps=5),
+                qf, kf, vf, dof, ref_lse, delta, causal), calls=3),
             "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
-                qf, kf, vf, dof, ref_lse, delta, causal), reps=5),
+                qf, kf, vf, dof, ref_lse, delta, causal), calls=3),
         }
         # library yardstick: SDPA forward, and its backward (one call that
         # computes dq, dk and dv together; it stands beside K2 and K3)
@@ -273,14 +341,13 @@ def phase_kernels() -> dict:
         library_ms = {"flash_fwd": cuda_ms(sdpa), "flash_bwd_dq": sdpa_bwd,
                       "flash_bwd_dkv": sdpa_bwd}
         bnd = bounds(B, T, H, Hkv, D, causal)
-
         ok = all(e["ok"] for e in errs.values())
         log(f"kernels @ {tag} {s}:")
         for name, e in errs.items():
             log(f"  {fmt_err(name, e)}{'' if e['ok'] else '  FAIL'}")
         for name, _, _ in KERNELS:
-            log(f"  {name}: kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms, "
-                f"sdpa {library_ms[name]:.3f} ms, bound {bnd[name][0]:.4f} ms "
+            log(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
+                f"sdpa {library_ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms "
                 f"({bnd[name][1]})")
         results[tag] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bounds=bnd, ok=ok)

@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+// The wmma pieces of the dq kernel K2 (flash_bwd.cu) for Hopper (sm_90a).
+// K1 and K3 are built on hopper.cuh instead.
 //
 // Layout: q, o, dq are [B, T, H, D] and k, v, dk, dv are [B, T, Hkv, D],
 // contiguous bf16, the layout the model produces, so no transpose is needed

@@ -2,17 +2,19 @@
 versions, and the differentiable functions the model calls.
 
 Kernels (pccl_tpu_torch/csrc, built by ops/_build.py):
-- K1 `flash_fwd`: (out, lse) by online softmax over k tiles;
-- K2 `flash_bwd_dq`: dq, rebuilding p = exp(s - lse) from the saved lse;
-- K3 `flash_bwd_dkv`: dk and dv, summed over the q heads of each kv head.
+- K1 `flash_fwd` (flash_fwd.cu): (out, lse) by online softmax over k tiles;
+- K2 `flash_bwd_dq` (flash_bwd.cu): dq, rebuilding p = exp(s - lse) from
+  the saved lse;
+- K3 `flash_bwd_dkv` (flash_bwd_dkv.cu): dk and dv, summed over the q
+  heads of each kv head.
 
 Layout: q, out [B, T, H, Dh]; k, v [B, T, Hkv, Dh] with Hkv dividing H
 (GQA); lse and delta [B, H, T] fp32: the JAX package's public layout.
 
 Each wrapper takes its plain version for tensors on the CPU, and launches
-its kernel for tensors on a CUDA card (bf16, contiguous, Dh 64 or 128),
-raising on anything else; there is no fallback from one to the other. A
-wrapper counts its kernel launches in `launches`.
+its kernel for tensors on a CUDA card (bf16, contiguous, 16-byte aligned,
+Dh 64 or 128), raising on anything else; there is no fallback from one to
+the other. A wrapper counts its kernel launches in `launches`.
 
 The backward needs delta = rowsum(do * o) in fp32, computed here outside
 the kernels; the (out, lse) form folds the lse cotangent into it:
@@ -148,6 +150,18 @@ def _check_qkv(q, k, v, *extra_like_q):
             raise ValueError(f"the CUDA kernels take bf16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
+    _check_aligned(q, k, v, *extra_like_q)
+
+
+def _check_aligned(*tensors):
+    """The kernels read their bf16 operands by TMA and 16-byte loads, which
+    need a base address on a 16-byte boundary; a contiguous view with a
+    storage offset may have another."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the CUDA kernels take tensors whose address is "
+                             f"16-byte aligned; got one at offset "
+                             f"{t.data_ptr() % 16} (a view? pass .clone())")
 
 
 def _check_vec(x, q):
@@ -204,7 +218,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_kernel("flash_bwd", "pccl_flash_bwd_dkv", 8), "flash_bwd_dkv",
+    _launch(_kernel("flash_bwd_dkv", "pccl_flash_bwd_dkv", 8), "flash_bwd_dkv",
             (q, k, v, do, lse, delta, dk, dv), q, k, causal)
     return dk, dv
 

@@ -23,6 +23,19 @@ SHAPES = [  # B, T, H, Hkv, D, causal
     (1, 200, 8, 2, 128, True),
     (2, 130, 4, 4, 64, False),
     (1, 64, 2, 1, 128, False),
+    # the edges of K1's and K3's 128-row tiles and K3's 64-row q tiles
+    (1, 1, 2, 2, 64, True),
+    (1, 65, 2, 2, 128, True),
+    (1, 127, 2, 1, 64, False),
+    (1, 129, 2, 2, 64, True),
+    (2, 200, 4, 4, 64, False),
+    # G = 4 q heads per kv head
+    (1, 256, 8, 2, 64, True),
+    (1, 256, 8, 2, 64, False),
+    (1, 256, 8, 2, 128, True),
+    (1, 192, 8, 2, 128, False),
+    # a long causal walk
+    (1, 2048, 4, 4, 64, True),
 ]
 
 
@@ -43,6 +56,12 @@ def _close(name, got, ref):
     rel_tol, atol, rtol = TOL[name]
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
+    if not ref.any():
+        # T = 1: one visible key, so ds = p (dp - delta) * scale is 0 and dq
+        # and dk vanish; what is left is the rounding of dp - delta, O(1e-7)
+        # on N(0, 1) inputs
+        assert err.max().item() <= 1e-4, (name, err.max().item())
+        return
     rel = (err.norm() / ref.norm()).item()
     assert rel <= rel_tol, (name, rel)
     limit = atol * ref.pow(2).mean().sqrt() + rtol * ref.abs()
@@ -82,3 +101,27 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     y = torch.zeros(1, 64, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
         fa.flash_fwd(y, y, y)
+    base = torch.zeros(1 + 64 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    shifted = base[1:].view(1, 64, 2, 64)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(shifted, shifted, shifted)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernels_are_deterministic(cuda, D):
+    """No atomics: two calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, T, H, Hkv = 2, 300, 8, 2
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(q, k, v, True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+        runs.append((out, lse, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -187,3 +187,15 @@ def test_scale_is_inverse_sqrt_head_dim():
     out, lse = tfa.flash_fwd_plain(q, k, v)
     assert torch.equal(out, v)
     assert math.isclose(lse.item(), 32 / math.sqrt(64), rel_tol=1e-6)
+
+
+def test_alignment_check():
+    """The kernels' TMA loads need 16-byte aligned operands; a contiguous
+    view with a storage offset may not be. The check looks only at the
+    address, so it runs here without a card."""
+    base = torch.zeros(1 + 64 * 64, dtype=torch.bfloat16)
+    shifted = base[1:].view(1, 64, 1, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_aligned(shifted)
+    tfa._check_aligned(torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16))
