@@ -7,15 +7,16 @@ Phases, in order; any failure exits non-zero:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: the CUDA kernels (one nvcc per pccl_tpu_torch/csrc/*.cu, all at
    once, with ptxas resource reports) and, when no library is found,
-   libpcclt.so from pccl_tpu/native/src, in parallel. K1 and K3 must show
-   0 bytes of spills, and, where cuobjdump is found, HGMMA and UTMALDG
-   instructions in their SASS;
+   libpcclt.so from pccl_tpu/native/src, in parallel. K1, K2 and K3 must
+   show 0 bytes of spills, and, where cuobjdump is found, HGMMA and UTMALDG
+   instructions in their SASS (whose highest register index is logged);
 3. kernels: K1 (forward), K2 (dq) and K3 (dk, dv) against their plain
    PyTorch versions (fp32 on the same bf16 inputs) at three shapes: the
    main path's, a GQA shape at head dim 128, and a ragged non-causal shape;
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
-   the least time the card could take;
+   the least time the card could take; and the backward's total, K2 + K3,
+   beside SDPA's backward, which computes dq, dk and dv in one call;
 4. model: a 2-layer GPT at GPT-2 widths in bf16 on the card, flash kernels
    against dense attention (loss and gradients);
 5. main path: a master and two sync-DiLoCo peers (GPT-2 124M, B=8, T=1024,
@@ -51,19 +52,17 @@ LOG_DIR = REPO / "build" / "chip_smoke"
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16
 PEAK_BYTES = 3.35e12    # H100 SXM, HBM3
 
-# name, route, source, the TPU kernel it replaces
+# name, source, the TPU kernel it replaces, and ptxas's mangled name of the
+# kernel at both head dims: each must show no spills, and wgmma (HGMMA) and
+# TMA loads (UTMALDG) in its machine code
 KERNELS = [
     ("flash_fwd", "pccl_tpu_torch/csrc/flash_fwd.cu",
-     "pccl_tpu/ops/flash_attention.py:83"),
+     "pccl_tpu/ops/flash_attention.py:83", r"flash_fwd_kernelILi(64|128)E"),
     ("flash_bwd_dq", "pccl_tpu_torch/csrc/flash_bwd.cu",
-     "pccl_tpu/ops/flash_attention.py:195"),
+     "pccl_tpu/ops/flash_attention.py:195", r"flash_bwd_dq_kernelILi(64|128)E"),
     ("flash_bwd_dkv", "pccl_tpu_torch/csrc/flash_bwd_dkv.cu",
-     "pccl_tpu/ops/flash_attention.py:231"),
+     "pccl_tpu/ops/flash_attention.py:231", r"flash_bwd_dkv_kernelILi(64|128)E"),
 ]
-# the kernels built on hopper.cuh (ptxas's mangled names, both head dims):
-# no spills, and wgmma (HGMMA) and TMA loads (UTMALDG) in their machine code
-REDESIGNED = {"flash_fwd": r"flash_fwd_kernelILi(64|128)E",
-              "flash_bwd_dkv": r"flash_bwd_dkv_kernelILi(64|128)E"}
 
 
 SHAPES = [
@@ -129,10 +128,21 @@ def spills(report: str) -> dict:
     return out
 
 
-def sass_counts(lib: Path, cuobjdump: str) -> dict:
+def sass_counts(lib: Path, cuobjdump: str) -> tuple:
+    """HGMMA and UTMALDG counts in a library's SASS, and the highest register
+    index each of its kernels touches, by head dim (a kernel that asks for
+    more registers by setmaxnreg than ptxas reports shows here whether
+    ptxas used them)."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    top = {}
+    for part in sass.split("Function : ")[1:]:
+        dh = re.search(r"ILi(\d+)E", part.split("\n", 1)[0])
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", part)]
+        if dh and regs:
+            top[f"Dh {dh.group(1)}"] = f"R{max(regs)}"
+    return counts, top
 
 
 def phase_build() -> None:
@@ -154,7 +164,7 @@ def phase_build() -> None:
     spilled = spills(report)
     cuobjdump = shutil.which("cuobjdump") \
         or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for name, fn in REDESIGNED.items():
+    for name, source, _, fn in KERNELS:
         entries = {e: sp for e, sp in spilled.items() if re.search(fn, e)}
         if len(entries) != 2:  # Dh 64 and 128
             raise SmokeError(f"ptxas reported {len(entries)} builds of {fn}, not 2")
@@ -164,8 +174,9 @@ def phase_build() -> None:
         if not Path(cuobjdump).exists():
             log(f"  {name}: 0 bytes of spills; no cuobjdump, SASS not counted")
             continue
-        counts = sass_counts(_build.BUILD_DIR / f"lib{name}.so", cuobjdump)
-        log(f"  {name}: 0 bytes of spills; SASS {counts}")
+        counts, top = sass_counts(_build.BUILD_DIR / f"lib{Path(source).stem}.so",
+                                  cuobjdump)
+        log(f"  {name}: 0 bytes of spills; SASS {counts}, highest register {top}")
         if not all(counts.values()):
             raise SmokeError(f"{name}: no HGMMA or no UTMALDG in its SASS: {counts}")
 
@@ -345,10 +356,14 @@ def phase_kernels() -> dict:
         log(f"kernels @ {tag} {s}:")
         for name, e in errs.items():
             log(f"  {fmt_err(name, e)}{'' if e['ok'] else '  FAIL'}")
-        for name, _, _ in KERNELS:
+        for name, *_ in KERNELS:
             log(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
                 f"sdpa {library_ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms "
                 f"({bnd[name][1]})")
+        bwd = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+        log(f"  backward: K2 + K3 {bwd:.4f} ms, sdpa bwd {sdpa_bwd:.4f} ms "
+            f"({bwd / sdpa_bwd:.2f}x), bounds K2 + K3 "
+            f"{bnd['flash_bwd_dq'][0] + bnd['flash_bwd_dkv'][0]:.4f} ms")
         results[tag] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bounds=bnd, ok=ok)
         del q, k, v, do, qf, kf, vf, dof, out, lse, ref_out, ref_lse, delta
@@ -499,13 +514,13 @@ def phase_main_path() -> dict:
             raise SmokeError(f"peer {rank}: expected {MAIN['outer_steps']} outer "
                              f"lines and FINAL")
         records.append(rows)
-    totals = {name: 0 for name, _, _ in KERNELS}
+    totals = {name: 0 for name, *_ in KERNELS}
     for rank, rows in enumerate(records):
         for row in rows:
             loss, world = float(row[1]), int(row[2])
             if not math.isfinite(loss) or world != 2:
                 raise SmokeError(f"peer {rank}: loss {loss}, world {world}")
-            for (name, _, _), n in zip(KERNELS, row[6:9]):
+            for (name, *_), n in zip(KERNELS, row[6:9]):
                 if int(n) <= 0:
                     raise SmokeError(f"peer {rank}: {name} never launched")
                 totals[name] += int(n)
@@ -549,7 +564,7 @@ def main() -> int:
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                  "flash_bwd_dkv": ("dk", "dv")}
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, _ in KERNELS:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path["launches"][name],

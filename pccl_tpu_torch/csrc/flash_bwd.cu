@@ -3,136 +3,233 @@
 // Replaces the TPU kernel `_flash_bwd_dq_kernel` of
 // pccl_tpu/ops/flash_attention.py (the first pl.pallas_call of
 // `_flash_bwd_bhtd`; K3, its second, is csrc/flash_bwd_dkv.cu). Same
-// function: it rebuilds p = exp(s - lse) from the forward's log-sum-exp,
-// and with delta = rowsum(do * o) (computed by the caller in fp32, minus
-// dlse when the lse has a cotangent)
+// function: with p = exp(s - lse) rebuilt from the forward's log-sum-exp and
+// delta = rowsum(do * o) (computed by the caller in fp32, minus dlse when
+// the lse has a cotangent),
 //     ds = p * (do . v^T - delta) * scale, cast to bf16,   dq = sum_k ds . k,
 // with fp32 accumulation and the -1e30 mask of the forward.
 //
-// Design: one block per (batch*head, q tile of 64 rows), looping over the k
-// tiles the causal bound lets it see. dq accumulates in wmma accumulator
-// fragments (registers) and is written once. The TPU grid carried dq across
-// sequential grid steps; here those steps are a loop inside one block, so no
-// atomics are needed and the result is deterministic. Rows and columns at or
-// past T are masked.
+// What bounds it on the H100: at the main path's shape (B=8, T=1024, H=12,
+// Dh=64, causal) its three products are 19.3 GFLOP, 0.0196 ms at 989
+// TFLOP/s, against 63.7 MB read once and written once, 0.0190 ms at 3.35
+// TB/s: bound by operations, barely.
 //
-// What bounds it on the H100: 3 products of 2*64*64*D FLOPs per tile pair,
-// so at the main path's shape it is bound by operations. This simple
-// version uses wmma fragments (mma.sync), plain synchronous tile loads and
-// scores through shared memory. Left for later: the Hopper redesign on
-// hopper.cuh (wgmma, TMA ring, warp specialisation) that K1 and K3 have.
-#include "flash_common.cuh"
+// Design (warp-specialised, one block per (batch*head, q tile of 64 rows),
+// longest causal rows first, 160 threads):
+// - one producer warp. Its lane 0 TMA-loads the q and do tiles once, then
+//   walks the k tiles (BK = 64 rows) the causal bound lets the q tile see
+//   (the TPU kernel's _causal_nk), loading K and V into a ring of 2 stages,
+//   each with its own "full" mbarrier so that S = Q.K^T starts before V
+//   lands;
+// - one consumer warpgroup owning the 64 q rows, with each thread's rows'
+//   lse (times log2 e) and delta in registers. Per k tile: S = Q.K^T and
+//   dP = dO.V^T by wgmma from shared memory (all K-major); p = exp2(s *
+//   scale * log2 e - lse2) while dP is still in flight, masked on the
+//   diagonal and ragged tiles only (TMA reads k rows past T as zeros, which
+//   would score 0); dS = p * (dP - delta) * scale rounded to bf16 in
+//   registers as the A operand of dQ += dS.K (K MN-major). dQ stays in
+//   registers for the whole block and is written once, so there are no
+//   atomics and results are deterministic;
+// - epilogue: dQ through shared memory (over the q and do tiles, which no
+//   product reads any more), 16-byte stores, rows past T skipped.
+// One consumer over 64 q rows rather than two over 128, and BK = 64 at both
+// head dims: the faster form at every shape chip_smoke.py measures, with
+// up to three blocks an SM (PERF.md, section 6).
+#include "hopper.cuh"
 
 namespace flash {
 
-template <int D>
-constexpr size_t dq_smem() {
-    // sQ, sdO, sK, sV (bf16 [64, D]) + sdS (bf16 [64, 64])
-    // + sS, sdP (fp32 [64, 64], contiguous: the dq staging tile reuses them)
-    return 4 * Tile<D>::BYTES + 64 * LDP * 2 + 2 * 64 * LDS * 4;
-}
-
-static_assert(2 * 64 * LDS * 4 >= Tile<128>::FBYTES, "staging tile must fit");
+using namespace hopper;
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct DqCfg {
+    static constexpr int BQ = 64;                      // q rows per block
+    static constexpr int BK = 64;                      // k rows per tile
+    static constexpr int STAGES = 2;
+    static constexpr int THREADS = 128 + 32;           // consumer + producer warp
+    static constexpr int Q_BYTES = BQ * D * 2;
+    static constexpr int KV_BYTES = BK * D * 2;
+    static constexpr int ST_ELEMS = 64 * (D + 8);      // the consumer's staging
+    static constexpr int OFF_DO = Q_BYTES;             // every tile 1024-aligned
+    static constexpr int OFF_K = 2 * Q_BYTES;
+    static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+    static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+    static constexpr int BYTES = OFF_BAR + (1 + 3 * STAGES) * 8 + 1024;
+    static_assert(ST_ELEMS * 2 <= 2 * Q_BYTES, "staging overlays the q and do tiles");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int T, int H, int Hkv, int causal,
                     float scale) {
-    constexpr int LD = Tile<D>::LD;
-    extern __shared__ __align__(128) unsigned char smem[];
+    using L = DqCfg<D>;
+    constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align_1024(smem_raw);
     bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sdO = sQ + 64 * LD;
-    bf16* sK = sdO + 64 * LD;
-    bf16* sV = sK + 64 * LD;
-    bf16* sdS = sV + 64 * LD;
-    float* sS = reinterpret_cast<float*>(sdS + 64 * LDP);
-    float* sdP = sS + 64 * LDS;
+    bf16* sdO = reinterpret_cast<bf16*>(smem + L::OFF_DO);
+    bf16* sK = reinterpret_cast<bf16*>(smem + L::OFF_K);
+    bf16* sV = reinterpret_cast<bf16*>(smem + L::OFF_V);
+    uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+    uint64_t* k_full = qdo_full + 1;
+    uint64_t* v_full = k_full + STAGES;
+    uint64_t* kv_empty = v_full + STAGES;
 
     const int nq = (T + BQ - 1) / BQ;
-    const int qt = nq - 1 - static_cast<int>(blockIdx.x);
+    const int qt = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal rows first
     const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
     const int q0 = qt * BQ;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int row = warp * 16 + (lane >> 1), half = lane & 1, qrow = q0 + row;
+    const int nkt = (T + BK - 1) / BK;
+    const int nk = causal ? min(nkt, (q0 + BQ + BK - 1) / BK) : nkt;
+    // warp-uniform for the compiler too, as the role split needs
+    const bool producer = __shfl_sync(0xffffffffu, threadIdx.x >= 128, 0);
 
-    load_tile<D>(sQ, q, b, h, H, T, q0);
-    load_tile<D>(sdO, dout, b, h, H, T, q0);
-    const size_t vec = static_cast<size_t>(bh) * T + qrow;
-    const float lse_r = qrow < T ? lse[vec] : 0.0f;
-    const float delta_r = qrow < T ? delta[vec] : 0.0f;
-
-    FragC acc[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-    const int nk = k_tiles(qt, T, causal);
-    for (int kt = 0; kt < nk; ++kt) {
-        __syncthreads();
-        load_tile<D>(sK, k, b, hk, Hkv, T, kt * BK);
-        load_tile<D>(sV, v, b, hk, Hkv, T, kt * BK);
-        __syncthreads();
-        {
-            FragC s[4];
-            gemm_abt<D>(s, sQ + warp * 16 * LD, sK);
-            store_scores(sS + warp * 16 * LDS, s);
-            gemm_abt<D>(s, sdO + warp * 16 * LD, sV);
-            store_scores(sdP + warp * 16 * LDS, s);
+    if (threadIdx.x == 0) {
+        mbar_init(qdo_full, 1);
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&k_full[s], 1);
+            mbar_init(&v_full[s], 1);
+            mbar_init(&kv_empty[s], 128);  // every consumer thread
         }
-        __syncwarp();
-        const float* srow = sS + row * LDS;
-        const float* dprow = sdP + row * LDS;
-        bf16* dsrow = sdS + row * LDP;
-        for (int c = half; c < BK; c += 2) {
-            const float p = visible(qrow, kt * BK + c, T, causal)
-                                ? __expf(srow[c] * scale - lse_r) : 0.0f;
-            dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r) * scale);
-        }
-        __syncwarp();
-        gemm_pb<D>(acc, sdS + warp * 16 * LDP, sK);
+        mbar_init_fence();
     }
-    __syncthreads();  // the staging tile overlays sS and sdP of every warp
-    stage_rows<D>(sS + warp * 16 * Tile<D>::LDF, acc);
     __syncthreads();
-    store_tile<D>(dq, sS, b, h, H, T, q0);
-}
 
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-    return static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (producer) {
+        // ---- producer warp
+        if (threadIdx.x == 128) {
+            prefetch_map(&tm_q);
+            prefetch_map(&tm_k);
+            prefetch_map(&tm_v);
+            prefetch_map(&tm_do);
+            mbar_expect_tx(qdo_full, 2 * L::Q_BYTES);
+            tma_load_rows<D, BQ>(sQ, &tm_q, qdo_full, b, h, q0);
+            tma_load_rows<D, BQ>(sdO, &tm_do, qdo_full, b, h, q0);
+            Ring<STAGES> ring;
+            for (int kt = 0; kt < nk; ++kt) {
+                const int s = ring.stage;
+                mbar_wait(&kv_empty[s], ring.phase ^ 1u);
+                mbar_expect_tx(&k_full[s], L::KV_BYTES);
+                tma_load_rows<D, BK>(sK + s * BK * D, &tm_k, &k_full[s], b, hk, kt * BK);
+                mbar_expect_tx(&v_full[s], L::KV_BYTES);
+                tma_load_rows<D, BK>(sV + s * BK * D, &tm_v, &v_full[s], b, hk, kt * BK);
+                ring.next();
+            }
+        }
+    } else {
+        // ---- consumer warpgroup: q rows [q0, q0 + 64)
+        const int t = threadIdx.x, w = t / 32, lane = t % 32;
+        const int ra = q0 + 16 * w + lane / 4;  // this thread's q rows: ra, ra + 8
+        const float sl2 = scale * 1.4426950408889634f;
+        float lse2[2], dlt[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = ra + 8 * r;
+            const size_t at = static_cast<size_t>(bh) * T + row;
+            lse2[r] = row < T ? lse[at] * 1.4426950408889634f : 0.0f;
+            dlt[r] = row < T ? delta[at] : 0.0f;
+        }
+        float acc[D / 2], s[BK / 2], dp[BK / 2];
+        uint32_t dsa[BK / 16][4];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.0f;
+
+        mbar_wait(qdo_full, 0);
+        Ring<STAGES> ring;
+        for (int kt = 0; kt < nk; ++kt) {
+            const int st = ring.stage;
+            const bf16* k_tile = sK + st * BK * D;
+            const bf16* v_tile = sV + st * BK * D;
+            mbar_wait(&k_full[st], ring.phase);
+            const uint64_t dqd = desc_kmajor(sQ, 0);
+            const uint64_t dkd = desc_kmajor(k_tile, 0);
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<0, 0>(s, kmajor_step<BQ>(dqd, kk), kmajor_step<BK>(dkd, kk), kk > 0);
+            wg_commit();
+            mbar_wait(&v_full[st], ring.phase);
+            const uint64_t dod = desc_kmajor(sdO, 0);
+            const uint64_t dvd = desc_kmajor(v_tile, 0);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss<0, 0>(dp, kmajor_step<BQ>(dod, kk), kmajor_step<BK>(dvd, kk), kk > 0);
+            wg_commit();
+            wg_wait<1>();  // S is done; dP may still run
+            fence_regs(s);
+
+            const int k0 = kt * BK;
+            const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > T;
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) {
+                const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+                const int row = ra + 8 * ((i / 2) % 2);
+                float p = ex2(fmaf(s[i], sl2, -lse2[(i / 2) % 2]));
+                if (edge && (col >= T || (causal && col > row))) p = 0.0f;
+                s[i] = p;
+            }
+            wg_wait<0>();
+            fence_regs(dp);
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i)
+                dp[i] = s[i] * (dp[i] - dlt[(i / 2) % 2]) * scale;
+            pack_a<BK>(dsa, dp);
+
+            const uint64_t dkm = desc_mnmajor<BK>(k_tile);
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                wgmma_rs<1>(acc, dsa[kk], mnmajor_step(dkm, kk), 1);
+            wg_commit();
+            wg_wait<0>();
+            fence_regs(acc);
+            fence_regs(dsa);
+            mbar_arrive(&kv_empty[st]);
+            ring.next();
+        }
+
+        wg_bar(1);  // every warp's products have read the q and do tiles
+        store_rows<D>(acc, 1.0f, 1.0f, sQ, dq + (static_cast<size_t>(b) * T * H + h) * D,
+                      static_cast<size_t>(H) * D, q0, T, 1);
+    }
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int T, int H,
               int Hkv, int causal, cudaStream_t stream) {
-    constexpr size_t smem = dq_smem<D>();
-    if (int e = set_smem(flash_bwd_dq_kernel<D>, smem)) return e;
-    const dim3 grid((T + BQ - 1) / BQ, B * H);
-    flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
+    using L = DqCfg<D>;
+    if (int e = allow_smem<flash_bwd_dq_kernel<D>>(L::BYTES)) return e;
+    CUtensorMap tq, tk, tv, tdo;
+    if (int e = make_map(&tq, q, B, T, H, D, L::BQ)) return e;
+    if (int e = make_map(&tk, k, B, T, Hkv, D, L::BK)) return e;
+    if (int e = make_map(&tv, v, B, T, Hkv, D, L::BK)) return e;
+    if (int e = make_map(&tdo, dout, B, T, H, D, L::BQ)) return e;
+    const dim3 grid((T + L::BQ - 1) / L::BQ, B * H);
+    flash_bwd_dq_kernel<D><<<grid, L::THREADS, L::BYTES, stream>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(dq), T, H, Hkv, causal, 1.0f / sqrtf(static_cast<float>(D)));
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace flash
 
-static bool bad_shape(int B, int T, int H, int Hkv) {
-    return B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0;
-}
-
 // q, do [B,T,H,D]; k, v [B,T,Hkv,D] bf16; lse, delta [B,H,T] fp32
-// -> dq [B,T,H,D] bf16. Returns the launch's cudaError_t (0 = launched).
+// -> dq [B,T,H,D] bf16. Every pointer 16-byte aligned. Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int pccl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int T,
                                  int H, int Hkv, int D, int causal, void* stream) {
-    if (bad_shape(B, T, H, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+    if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     if (D == 64)
         return flash::launch_dq<64>(q, k, v, dout, lse, delta, dq, B, T, H, Hkv, causal, s);

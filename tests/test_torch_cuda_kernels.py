@@ -36,6 +36,14 @@ SHAPES = [  # B, T, H, Hkv, D, causal
     (1, 192, 8, 2, 128, False),
     # a long causal walk
     (1, 2048, 4, 4, 64, True),
+    # the edges of K2's 64-row k tiles (BK = 64 at both head dims), and a
+    # ragged G = 4 causal walk at Dh = 128
+    (1, 63, 2, 2, 64, True),
+    (1, 64, 2, 2, 64, False),
+    (1, 65, 2, 1, 64, True),
+    (1, 63, 2, 2, 128, False),
+    (1, 64, 2, 1, 128, True),
+    (1, 191, 8, 2, 128, True),
 ]
 
 
@@ -120,8 +128,9 @@ def test_kernels_are_deterministic(cuda, D):
     for _ in range(2):
         out, lse = fa.flash_fwd(q, k, v, True)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
-        runs.append((out, lse, dk, dv))
+        runs.append((out, lse, dq, dk, dv))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
