@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: the CUDA kernels (one nvcc per pccl_tpu_torch/csrc/*.cu, all at
    once, with ptxas resource reports) and, when no library is found,
-   libpcclt.so from pccl_tpu/native/src, in parallel. K1, K2 and K3 must
-   show 0 bytes of spills, and, where cuobjdump is found, HGMMA and UTMALDG
-   instructions in their SASS (whose highest register index is logged);
+   libpcclt.so from pccl_tpu/native/src, in parallel. Every kernel must
+   show 0 bytes of spills, and K1, K2 and K3, where cuobjdump is found,
+   HGMMA and UTMALDG instructions in their SASS (whose highest register
+   index is logged);
 3. kernels: K1 (forward), K2 (dq) and K3 (dk, dv) against their plain
    PyTorch versions (fp32 on the same bf16 inputs) at three shapes: the
    main path's, a GQA shape at head dim 128, and a ragged non-causal shape;
@@ -17,12 +18,26 @@ Phases, in order; any failure exits non-zero:
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
    beside SDPA's backward, which computes dq, dk and dv in one call;
+3b. hash: H1 (the `simple-tpu` content hash) bit for bit against its plain
+   version on the card, the numpy twin and the C++ core's pccltHashBuffer,
+   at ragged byte counts, bf16, int8, uint64 and GPT-2's tok_emb; a one-bit
+   flip must change the digest; times of H1 at tok_emb and over the 25
+   entries of a GPT-2 sync, the plain version, the bound, a one-read
+   yardstick (half the time of a copy_ of the same bytes) beside an int32
+   sum over them, and the host's cost of the 8-byte readbacks;
 4. model: a 2-layer GPT at GPT-2 widths in bf16 on the card, flash kernels
    against dense attention (loss and gradients);
-5. main path: a master and two sync-DiLoCo peers (GPT-2 124M, B=8, T=1024,
+5. main path, sync DiLoCo: a master and two peers (GPT-2 124M, B=8, T=1024,
    4 inner steps, 2 outer steps) on the same card over the native ring. Both
    peers must exit 0 with world 2, finite losses, equal outer-state digests
-   at every outer step and every kernel launched.
+   at every outer step and every kernel launched;
+6. main path, DDP with shared-state sync hashed by H1: a master and two
+   `train_ddp` peers (GPT-2 124M, B=8, T=1024, PCCLT_SS_HASH=simple-tpu),
+   and a third that starts once the first has logged step 2 and adopts the
+   cohort's parameters and AdamW state. Syncs move no bytes before it
+   comes and after it adopted; it receives every entry's bytes; the three
+   print equal digests at every common step and equal final parameters;
+   every kernel (K1-K3 and H1) is launched on every peer.
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -52,17 +67,23 @@ LOG_DIR = REPO / "build" / "chip_smoke"
 PEAK_FLOPS = 989e12     # H100 SXM, dense bf16
 PEAK_BYTES = 3.35e12    # H100 SXM, HBM3
 
-# name, source, the TPU kernel it replaces, and ptxas's mangled name of the
-# kernel at both head dims: each must show no spills, and wgmma (HGMMA) and
-# TMA loads (UTMALDG) in its machine code
+# name, source, the TPU kernel it replaces, ptxas's mangled names of its
+# kernels and how many there are (the flash kernels at both head dims, H1's
+# two passes), and whether its machine code must hold wgmma (HGMMA) and TMA
+# loads (UTMALDG). None may spill.
 KERNELS = [
     ("flash_fwd", "pccl_tpu_torch/csrc/flash_fwd.cu",
-     "pccl_tpu/ops/flash_attention.py:83", r"flash_fwd_kernelILi(64|128)E"),
+     "pccl_tpu/ops/flash_attention.py:83", r"flash_fwd_kernelILi(64|128)E", 2, True),
     ("flash_bwd_dq", "pccl_tpu_torch/csrc/flash_bwd.cu",
-     "pccl_tpu/ops/flash_attention.py:195", r"flash_bwd_dq_kernelILi(64|128)E"),
+     "pccl_tpu/ops/flash_attention.py:195", r"flash_bwd_dq_kernelILi(64|128)E",
+     2, True),
     ("flash_bwd_dkv", "pccl_tpu_torch/csrc/flash_bwd_dkv.cu",
-     "pccl_tpu/ops/flash_attention.py:231", r"flash_bwd_dkv_kernelILi(64|128)E"),
+     "pccl_tpu/ops/flash_attention.py:231", r"flash_bwd_dkv_kernelILi(64|128)E",
+     2, True),
+    ("simplehash_tpu", "pccl_tpu_torch/csrc/simplehash_tpu.cu",
+     "pccl_tpu/ops/hashing.py:241", r"simplehash_tpu_(planes|fold)", 2, False),
 ]
+FLASH = [k[0] for k in KERNELS[:3]]
 
 
 SHAPES = [
@@ -89,6 +110,7 @@ TOL = {  # name: (rel, atol, rtol)
 HOST_LEAD_CYCLES = 10_000_000
 
 MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
+DDP = dict(model="gpt2", block=1024, batch=8, steps=80)
 PEER_TIMEOUT_S = 600
 
 
@@ -164,13 +186,17 @@ def phase_build() -> None:
     spilled = spills(report)
     cuobjdump = shutil.which("cuobjdump") \
         or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for name, source, _, fn in KERNELS:
+    for name, source, _, fn, builds, wgmma in KERNELS:
         entries = {e: sp for e, sp in spilled.items() if re.search(fn, e)}
-        if len(entries) != 2:  # Dh 64 and 128
-            raise SmokeError(f"ptxas reported {len(entries)} builds of {fn}, not 2")
+        if len(entries) != builds:
+            raise SmokeError(f"ptxas reported {len(entries)} builds of {fn}, "
+                             f"not {builds}")
         bad = {e: sp for e, sp in entries.items() if sp != (0, 0)}
         if bad:
             raise SmokeError(f"{fn} spills (store, load bytes): {bad}")
+        if not wgmma:
+            log(f"  {name}: 0 bytes of spills")
+            continue
         if not Path(cuobjdump).exists():
             log(f"  {name}: 0 bytes of spills; no cuobjdump, SASS not counted")
             continue
@@ -190,7 +216,8 @@ def cuda_ms(fn, calls: int = 20, pairs: int = 5, warmup: int = 3) -> float:
     card, so that the host has queued every call before the first event
     fires and the figure holds the card's time only, not the host's work
     before each launch. A batch whose host side outlasted the spin is timed
-    again behind a spin twice as long."""
+    again behind a spin twice as long. fn must not wait for the card, or no
+    spin is long enough: that is refused past a spin of ~5 s."""
     import torch
 
     for _ in range(warmup):
@@ -209,10 +236,30 @@ def cuda_ms(fn, calls: int = 20, pairs: int = 5, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         if host_ms >= s.elapsed_time(a):
+            if cycles >= HOST_LEAD_CYCLES << 10:
+                raise SmokeError("cuda_ms: the host never got ahead of a 5 s "
+                                 "spin; the timed function waits for the card")
             cycles *= 2
             continue
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def synced_ms(fn, calls: int = 3, warmup: int = 1) -> float:
+    """Milliseconds per call of fn() on the host clock between two
+    synchronisations, launch overhead included: for a function that
+    launches too many kernels to queue behind cuda_ms's spin (the launch
+    queue fills, and the host waits for the card)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def visible_pairs(T: int, causal: bool) -> int:
@@ -356,7 +403,7 @@ def phase_kernels() -> dict:
         log(f"kernels @ {tag} {s}:")
         for name, e in errs.items():
             log(f"  {fmt_err(name, e)}{'' if e['ok'] else '  FAIL'}")
-        for name, *_ in KERNELS:
+        for name in FLASH:
             log(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
                 f"sdpa {library_ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms "
                 f"({bnd[name][1]})")
@@ -372,6 +419,119 @@ def phase_kernels() -> dict:
         if not ok:
             raise SmokeError(f"kernels disagree with their plain versions at {tag}")
     return results
+
+
+# ------------------------------------------------------------------ phase 3b
+
+# byte counts across H1's edges: under one word, one word, ragged words,
+# exactly one and two lane rows and just past them, and 4 rows
+HASH_BYTES = [1, 3, 4, 17, 65536 * 4, 65536 * 4 + 4, 65536 * 8 + 7, 1 << 20]
+GPT2_PARAM_BYTES = 494_349_312   # 123,587,328 fp32 parameters
+
+
+def gpt2_sync_entries(dev) -> list:
+    """Tensors shaped as the 25 device-hashed entries of a GPT-2 DDP sync:
+    8 parameters, AdamW's count, and mu and nu of each parameter."""
+    import torch
+
+    from pccl_tpu_torch.models import gpt
+
+    shapes = list(gpt.param_shapes(gpt.named_config("gpt2")).values())
+    xs = [torch.randn(s, device=dev) for s in shapes]
+    return xs + [torch.zeros((), dtype=torch.int32, device=dev)] \
+        + [torch.randn(s, device=dev) for s in shapes * 2]
+
+
+def phase_hash() -> dict:
+    """H1 against its plain version on the card, the numpy twin and
+    pccltHashBuffer(2, ...), bit for bit; times, bound and yardstick."""
+    import numpy as np
+    import torch
+
+    from pccl_tpu_torch.comm import _native
+    from pccl_tpu_torch.ops import hashing
+
+    dev = torch.device("cuda")
+    lib = _native.load()
+    gen = torch.Generator(device=dev).manual_seed(99)
+    tok_emb = torch.randn((50304, 768), generator=gen, device=dev)
+    cases = [(f"u8 x {n}", torch.randint(0, 256, (n,), generator=gen, device=dev,
+                                         dtype=torch.uint8)) for n in HASH_BYTES]
+    cases += [
+        ("bf16 x 196609", torch.randn(3 * 65536 + 1, generator=gen,
+                                      device=dev).bfloat16()),
+        ("i8 x 131075", torch.randint(-128, 128, (131075,), generator=gen,
+                                      device=dev, dtype=torch.int8)),
+        ("u64 x 100003", torch.randint(-2 ** 62, 2 ** 62, (100003,), generator=gen,
+                                       device=dev, dtype=torch.int64).view(torch.uint64)),
+        ("tok_emb fp32 50304 x 768", tok_emb),
+    ]
+    max_err = 0    # the largest |kernel - plain| over every plane compared
+    for tag, t in cases:
+        kernel = hashing.device_planes(t)
+        plain = hashing.planes_plain(t)
+        digest = hashing.torch_simplehash_device(t)
+        host = t.reshape(-1).view(torch.uint8).cpu().numpy()
+        twin = hashing.simplehash_tpu(host)
+        native = lib.pccltHashBuffer(2, host.ctypes.data, host.size)
+        max_err = max(max_err, int((kernel - plain).abs().max()))
+        ok = torch.equal(kernel, plain) and digest == twin == native
+        log(f"  H1 {tag}: planes {kernel.tolist()} plain {plain.tolist()}, digest "
+            f"{digest:016x} twin {twin:016x} native {native:016x}"
+            f"{'' if ok else '  FAIL'}")
+        if not ok:
+            raise SmokeError(f"H1 disagrees at {tag}")
+    empty = torch.empty(0, device=dev)
+    if hashing.torch_simplehash_device(empty) != lib.pccltHashBuffer(2, None, 0):
+        raise SmokeError("the 0-byte digest differs from the native one")
+    base = hashing.torch_simplehash_device(tok_emb)
+    words = tok_emb.numel()
+    for w in (0, 65535, 65536, words - 1):
+        flip = tok_emb.view(torch.int32).clone().reshape(-1)
+        flip[w] ^= 1
+        if hashing.torch_simplehash_device(flip) == base:
+            raise SmokeError(f"a one-bit flip at word {w} leaves the digest as is")
+    log("  H1: a one-bit flip at words 0, 65535, 65536 and the last changes "
+        "the digest")
+
+    entries = gpt2_sync_entries(dev)
+    sync_bytes = sum(x.numel() * x.element_size() for x in entries)
+    if sync_bytes != 3 * GPT2_PARAM_BYTES + 4:
+        raise SmokeError(f"GPT-2 sync entries hold {sync_bytes} bytes")
+    nbytes = tok_emb.numel() * 4
+    copy_dst = torch.empty_like(tok_emb)
+    res = {
+        "cases": len(cases), "max_abs_err": max_err,
+        "ms": cuda_ms(lambda: hashing.device_planes(tok_emb)),
+        # the plain version launches some 600 small kernels a call
+        "plain_ms": synced_ms(lambda: hashing.planes_plain(tok_emb)),
+        "bound_ms": nbytes / PEAK_BYTES * 1e3,
+        "sum_ms": cuda_ms(lambda: tok_emb.view(torch.int32).sum(dtype=torch.int64)),
+        # a copy reads and writes the bytes once each: half its time is
+        # what one read takes at the rate the card's copy reaches
+        "read_ms": cuda_ms(lambda: copy_dst.copy_(tok_emb)) / 2,
+        "sync_ms": cuda_ms(lambda: [hashing.device_planes(x) for x in entries],
+                           calls=2),
+        "sync_bound_ms": sync_bytes / PEAK_BYTES * 1e3,
+    }
+    # the host's side of a sync's digests: 25 launches, each followed by
+    # the 8-byte readback that waits for it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        for x in entries:
+            hashing.torch_simplehash_device(x)
+    res["sync_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"hash (H1) @ tok_emb ({nbytes} bytes): kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.3f} ms (host clock), bound {res['bound_ms']:.4f} ms (bytes), "
+        f"one-read yardstick (half a copy_) {res['read_ms']:.4f} ms, "
+        f"int32 sum {res['sum_ms']:.4f} ms")
+    log(f"hash (H1) @ a GPT-2 sync (25 entries, {sync_bytes} bytes): kernels "
+        f"{res['sync_ms']:.4f} ms, bound {res['sync_bound_ms']:.4f} ms; with "
+        f"the 25 readbacks, host clock {res['sync_host_ms']:.3f} ms")
+    del tok_emb, cases, entries, kernel, plain, flip, copy_dst
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------------ phase 4
@@ -451,62 +611,80 @@ def stop(proc) -> None:
             proc.wait(timeout=15)
 
 
+def start_master(procs: list, files: list, env: dict) -> int:
+    """A master on an OS-chosen port, logging to LOG_DIR/master.log; returns
+    the port once it listens."""
+    port, = free_ports(1)
+    files.append(open(LOG_DIR / "master.log", "w"))
+    master = subprocess.Popen(
+        [sys.executable, "-m", "pccl_tpu_torch.comm.master", "--listen",
+         "127.0.0.1", "--port", str(port)], cwd=REPO, env=env, stdout=files[-1],
+        stderr=subprocess.STDOUT)
+    procs.append(master)
+    deadline = time.time() + 60
+    while "master listening" not in (LOG_DIR / "master.log").read_text():
+        if master.poll() is not None or time.time() > deadline:
+            raise SmokeError("master did not start: "
+                             + (LOG_DIR / "master.log").read_text())
+        time.sleep(0.2)
+    return port
+
+
+def spawn(procs: list, files: list, env: dict, log_name: str, cmd: list):
+    files.append(open(LOG_DIR / log_name, "w"))
+    procs.append(subprocess.Popen([sys.executable, "-m", *cmd], cwd=REPO, env=env,
+                                  stdout=files[-1], stderr=subprocess.STDOUT))
+    return procs[-1]
+
+
+def wait_all(peers: list, deadline: float) -> None:
+    try:
+        for p in peers:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"peers still running after {PEER_TIMEOUT_S} s") from None
+
+
+def dump_logs(names: list) -> None:
+    for name in names:
+        for line in (LOG_DIR / name).read_text().splitlines():
+            log(f"  {name.removesuffix('.log')}| {line}")
+
+
 def phase_main_path() -> dict:
-    """Master + two peers; returns per-kernel launch totals and the peers'
-    per-outer-step records."""
+    """Master + two sync-DiLoCo peers; returns per-kernel launch totals and
+    the peers' per-outer-step records."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1")
-    py = sys.executable
-    port, = free_ports(1)
     procs, files, peers = [], [], []
+    names = [f"peer{rank}.log" for rank in range(2)]
     try:
-        files.append(open(LOG_DIR / "master.log", "w"))
-        master = subprocess.Popen(
-            [py, "-m", "pccl_tpu_torch.comm.master", "--listen", "127.0.0.1",
-             "--port", str(port)], cwd=REPO, env=env, stdout=files[-1],
-            stderr=subprocess.STDOUT)
-        procs.append(master)
-        deadline = time.time() + 60
-        while "master listening" not in (LOG_DIR / "master.log").read_text():
-            if master.poll() is not None or time.time() > deadline:
-                raise SmokeError("master did not start: "
-                                 + (LOG_DIR / "master.log").read_text())
-            time.sleep(0.2)
+        port = start_master(procs, files, env)
         for rank, base in enumerate(free_ports(2, offsets=(0, 4, 8))):
-            files.append(open(LOG_DIR / f"peer{rank}.log", "w"))
-            cmd = [py, "-m", "pccl_tpu_torch.examples.sync_diloco",
-                   "--master-port", str(port), "--base-port", str(base),
-                   "--data-shard", str(rank),
-                   "--min-world", "2", "--model", MAIN["model"],
-                   "--block", str(MAIN["block"]), "--batch", str(MAIN["batch"]),
-                   "--inner-steps", str(MAIN["inner_steps"]),
-                   "--outer-steps", str(MAIN["outer_steps"]),
-                   "--device", "cuda", "--attn", "flash",
-                   # 8 steps from random init at GPT-2 width cannot show
-                   # learning (AdamW without warmup moves the loss up and
-                   # down by ~0.1 there); the check here is the ring's
-                   # invariant: equal outer digests on both peers
-                   "--no-descent-check"]
-            peers.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=files[-1],
-                                          stderr=subprocess.STDOUT))
-            procs.append(peers[-1])
-        deadline = time.time() + PEER_TIMEOUT_S
-        try:
-            for p in peers:
-                p.wait(timeout=max(1.0, deadline - time.time()))
-        except subprocess.TimeoutExpired:
-            raise SmokeError(f"peers still running after {PEER_TIMEOUT_S} s") from None
+            peers.append(spawn(procs, files, env, names[rank], [
+                "pccl_tpu_torch.examples.sync_diloco",
+                "--master-port", str(port), "--base-port", str(base),
+                "--data-shard", str(rank),
+                "--min-world", "2", "--model", MAIN["model"],
+                "--block", str(MAIN["block"]), "--batch", str(MAIN["batch"]),
+                "--inner-steps", str(MAIN["inner_steps"]),
+                "--outer-steps", str(MAIN["outer_steps"]),
+                "--device", "cuda", "--attn", "flash",
+                # 8 steps from random init at GPT-2 width cannot show
+                # learning (AdamW without warmup moves the loss up and
+                # down by ~0.1 there); the check here is the ring's
+                # invariant: equal outer digests on both peers
+                "--no-descent-check"]))
+        wait_all(peers, time.time() + PEER_TIMEOUT_S)
     finally:
         for p in procs:
             stop(p)
         for f in files:
             f.close()
-        for rank in range(len(peers)):
-            for line in (LOG_DIR / f"peer{rank}.log").read_text().splitlines():
-                log(f"  peer{rank}| {line}")
+        dump_logs(names[:len(peers)])
     records = []
     for rank, p in enumerate(peers):
-        text = (LOG_DIR / f"peer{rank}.log").read_text()
+        text = (LOG_DIR / names[rank]).read_text()
         if p.returncode != 0:
             raise SmokeError(f"peer {rank} exited {p.returncode}")
         rows = [m.groups() for m in LINE.finditer(text)]
@@ -514,13 +692,13 @@ def phase_main_path() -> dict:
             raise SmokeError(f"peer {rank}: expected {MAIN['outer_steps']} outer "
                              f"lines and FINAL")
         records.append(rows)
-    totals = {name: 0 for name, *_ in KERNELS}
+    totals = {name: 0 for name in FLASH}
     for rank, rows in enumerate(records):
         for row in rows:
             loss, world = float(row[1]), int(row[2])
             if not math.isfinite(loss) or world != 2:
                 raise SmokeError(f"peer {rank}: loss {loss}, world {world}")
-            for (name, *_), n in zip(KERNELS, row[6:9]):
+            for name, n in zip(FLASH, row[6:9]):
                 if int(n) <= 0:
                     raise SmokeError(f"peer {rank}: {name} never launched")
                 totals[name] += int(n)
@@ -532,6 +710,126 @@ def phase_main_path() -> dict:
     log(f"main path: 2 peers, world 2, digests equal at every outer step, "
         f"launches {totals}")
     return {"launches": totals, "records": records}
+
+
+# ------------------------------------------------------------------ phase 6
+
+DDP_LINE = re.compile(
+    r"^step (\d+) loss (\S+) world (\d+) revision \d+ tok_s (\S+) ring_s (\S+) "
+    r"sync_s (\S+) tx (\d+) rx (\d+) launches (\d+) (\d+) (\d+) (\d+) "
+    r"digest (\w+)$", re.M)
+# everything a late joiner receives: parameters, mu and nu in fp32, AdamW's
+# int32 count and the u64 step
+ADOPT_BYTES = 3 * GPT2_PARAM_BYTES + 4 + 8
+
+
+def ddp_rows(text: str) -> dict:
+    """{step: dict of the step line's fields} of one peer's log."""
+    keys = ("loss", "world", "tok_s", "ring_s", "sync_s", "tx", "rx", *FLASH,
+            "simplehash_tpu", "digest")
+    rows = {}
+    for m in DDP_LINE.finditer(text):
+        row = dict(zip(keys, m.groups()[1:]))
+        for k in keys[1:-1]:
+            row[k] = float(row[k]) if k.endswith("_s") else int(row[k])
+        row["loss"] = float(row["loss"])
+        rows[int(m.group(1))] = row
+    return rows
+
+
+def phase_ddp() -> dict:
+    """Master, DDP peers A and B, and C, which joins late and adopts their
+    state; returns per-kernel launch totals and the per-step rows."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PCCLT_SS_HASH="simple-tpu")
+    procs, files, peers = [], [], []
+    names = [f"ddp_{p}.log" for p in "abc"]
+    try:
+        port = start_master(procs, files, env)
+        bases = free_ports(3, offsets=(0, 4, 8))
+
+        def peer(rank, min_world):
+            return spawn(procs, files, env, names[rank], [
+                "pccl_tpu_torch.examples.train_ddp",
+                "--master-port", str(port), "--base-port", str(bases[rank]),
+                "--data-shard", str(rank), "--min-world", str(min_world),
+                "--model", DDP["model"], "--block", str(DDP["block"]),
+                "--batch", str(DDP["batch"]), "--steps", str(DDP["steps"]),
+                "--device", "cuda", "--attn", "flash",
+                # a few dozen steps from random init at GPT-2 width need not
+                # show learning; the checks here are the DDP invariants
+                "--no-descent-check"])
+
+        peers += [peer(0, 2), peer(1, 2)]
+        deadline = time.time() + PEER_TIMEOUT_S
+        # C starts once A has logged step 2, as the JAX package's late-join
+        # test gates its joiner
+        while not re.search(r"^step 2 ", (LOG_DIR / names[0]).read_text(), re.M):
+            if peers[0].poll() is not None or time.time() > deadline:
+                raise SmokeError("DDP peer A never reached step 2")
+            time.sleep(0.2)
+        peers.append(peer(2, 3))
+        wait_all(peers, deadline)
+    finally:
+        for p in procs:
+            stop(p)
+        for f in files:
+            f.close()
+        dump_logs(names[:len(peers)])
+    texts = [(LOG_DIR / n).read_text() for n in names]
+    m = re.search(r"adopted shared state at step (\d+)", texts[2])
+    if m is None:
+        raise SmokeError(f"the late joiner C never joined the DDP cohort (A and B "
+                         f"ran {DDP['steps']} steps before it came; raise "
+                         f"DDP['steps'])")
+    for rank, p in enumerate(peers):
+        if p.returncode != 0 or "FINAL" not in texts[rank]:
+            raise SmokeError(f"DDP peer {'abc'[rank]} exited {p.returncode}")
+    rows = [ddp_rows(t) for t in texts]
+    k = int(m.group(1))
+    a, b, c = rows
+    if k <= 0 or min(c) != k or len(c) < 10:
+        raise SmokeError(f"C adopted at step {k} and trained {len(c)} steps "
+                         f"with the others (needs k > 0 and >= 10 steps)")
+    for tag, r in zip("abc", rows):
+        if not any(row["world"] == 3 for row in r.values()):
+            raise SmokeError(f"DDP peer {tag} never saw world 3")
+        if not all(math.isfinite(row["loss"]) for row in r.values()):
+            raise SmokeError(f"DDP peer {tag}: a loss is not finite")
+    for tag, r in zip("ab", rows):
+        moved = [s for s in r if s < k and (r[s]["tx"], r[s]["rx"]) != (0, 0)]
+        if moved:
+            raise SmokeError(f"{tag}'s syncs before C came moved bytes at steps "
+                             f"{moved}: the device hashes disagree across peers")
+    if c[k]["rx"] != ADOPT_BYTES or a[k]["tx"] + b[k]["tx"] != ADOPT_BYTES:
+        raise SmokeError(f"adoption at step {k}: C received {c[k]['rx']}, A and B "
+                         f"sent {a[k]['tx']} + {b[k]['tx']}; expected {ADOPT_BYTES}")
+    for s in sorted(set(a) | set(b)):
+        peers_at = [r[s] for r in rows if s in r]
+        if len(peers_at) < (3 if s >= k else 2) or s not in a or s not in b:
+            raise SmokeError(f"step {s} is missing from a peer's log")
+        if len({row["digest"] for row in peers_at}) != 1:
+            raise SmokeError(f"step {s}: digests differ across peers")
+        if s > k and any((row["tx"], row["rx"]) != (0, 0) for row in peers_at):
+            raise SmokeError(f"step {s}: a sync after the adoption moved bytes")
+    finals = {re.search(r"params_blake2b=(\w+)", t).group(1) for t in texts}
+    if len(finals) != 1:
+        raise SmokeError(f"final parameters differ: {sorted(finals)}")
+    totals = {name: 0 for name, *_ in KERNELS}
+    for tag, r in zip("abc", rows):
+        for name in totals:
+            n = sum(row[name] for row in r.values())
+            if n <= 0:
+                raise SmokeError(f"DDP peer {tag}: {name} never launched")
+            totals[name] += n
+    peaks = [re.search(r"peak_alloc_mib=(\d+)", t).group(1) for t in texts]
+    rss = [re.search(r"peak_rss_mib=(\d+)", t).group(1) for t in texts]
+    log(f"DDP path: C adopted {ADOPT_BYTES} bytes at step {k} (A sent {a[k]['tx']}, "
+        f"B {b[k]['tx']}) and trained {len(c)} steps; 0-byte syncs before and "
+        f"after; digests equal at every step; params_blake2b {finals.pop()}; peak "
+        f"allocated MiB a/b/c {'/'.join(peaks)}; peak host RSS MiB a/b/c "
+        f"{'/'.join(rss)}; launches {totals}")
+    return {"launches": totals, "rows": rows, "adopted_at": k}
 
 
 # ------------------------------------------------------------------ main
@@ -550,30 +848,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
-    kres = phase_kernels()
-    phase_model()
     from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import hashing
 
-    # the main path runs in the peer processes, whose counts start at 0;
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    kres = timed("kernels", phase_kernels)
+    hres = timed("hash", phase_hash)
+    timed("model", phase_model)
+    # each main path runs in its peer processes, whose counts start at 0;
     # the comparisons above do not count
     fa.reset_launch_counts()
-    main_path = phase_main_path()
+    hashing.reset_launch_counts()
+    main_path = timed("diloco", phase_main_path)
+    fa.reset_launch_counts()
+    hashing.reset_launch_counts()
+    ddp = timed("ddp", phase_ddp)
 
     m = kres["main"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                  "flash_bwd_dkv": ("dk", "dv")}
     kernels = []
-    for name, source, replaces, _ in KERNELS:
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_path["launches"][name],
-            "max_abs_err": max(m["errs"][o]["max_abs"] for o in out_names[name]),
-            "ms": m["ms"][name], "plain_ms": m["plain_ms"][name],
-            "bound_ms": m["bounds"][name][0], "bound_by": m["bounds"][name][1],
-            "library_ms": m["library_ms"][name],
-            "ok": all(r["ok"] for r in kres.values()),
-        })
+    for name, source, replaces, *_ in KERNELS:
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": main_path["launches"].get(name, 0) + ddp["launches"][name]}
+        if name in FLASH:
+            row.update({
+                "max_abs_err": max(m["errs"][o]["max_abs"] for o in out_names[name]),
+                "ms": m["ms"][name], "plain_ms": m["plain_ms"][name],
+                "bound_ms": m["bounds"][name][0], "bound_by": m["bounds"][name][1],
+                "library_ms": m["library_ms"][name],
+                "ok": all(r["ok"] for r in kres.values())})
+        else:   # H1, times at tok_emb; the error over phase 3b's cases,
+            # whose digests were compared exactly; no library call
+            row.update({"max_abs_err": hres["max_abs_err"], "ms": hres["ms"],
+                        "plain_ms": hres["plain_ms"], "bound_ms": hres["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None,
+                        "ok": hres["max_abs_err"] == 0})
+        kernels.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

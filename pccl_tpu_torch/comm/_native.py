@@ -167,6 +167,9 @@ def _declare(lib):
         c.c_void_p, P(c.c_void_p), P(c.c_void_p), P(c.c_uint64), c.c_int,
         P(ReduceDescriptor), c.c_uint64, P(ReduceInfo)]
 
+    lib.pccltHashBuffer.restype = c.c_uint64
+    lib.pccltHashBuffer.argtypes = [c.c_int, c.c_void_p, c.c_uint64]
+
     lib.pccltSynchronizeSharedState.restype = c.c_int
     lib.pccltSynchronizeSharedState.argtypes = [c.c_void_p, P(SharedStateC), c.c_int,
                                                 P(SharedStateSyncInfo)]

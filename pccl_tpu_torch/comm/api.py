@@ -1,22 +1,28 @@
 """High-level Python API over the native core.
 
-The part of the pcclt surface the sync-DiLoCo peer calls: Communicator,
-MasterNode, host TensorInfo/SharedState, and the PcclError family. Collective
+The part of the pcclt surface the port's peers call: Communicator,
+MasterNode, TensorInfo/SharedState, and the PcclError family. Collective
 ops raise PcclError subclasses on peer churn and the caller retries after
 update_topology().
 
-The native core reads and writes host memory only. A tensor on a CUDA card
-is staged through a host buffer by the caller (parallel/diloco.py does it
-with one pinned buffer); `TensorInfo.from_torch` therefore takes CPU tensors.
+The native core reads and writes host memory only. The ring's callers
+stage CUDA tensors through pinned host buffers (parallel/diloco.py,
+parallel/hierarchical.py). A shared-state entry of a CPU tensor shares its
+storage (`TensorInfo.from_torch`, hashed by the core); one of a CUDA tensor
+is hashed on the card (`TensorInfo.from_torch_device`: H1 computes the
+`simple-tpu` digest, and the bytes go to the host only when the sync must
+send or receive them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import enum
+import os
 import threading
-from dataclasses import dataclass
-from typing import Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -55,8 +61,9 @@ class DataType(enum.IntEnum):
 
 
 class DeviceType(enum.IntEnum):
-    # the C enum (pcclt.h); CUDA tensors are staged to the host, so they
-    # enter the core as HOST
+    # the C enum (pcclt.h). The core only labels entries with it; a CUDA
+    # tensor's entry takes the label the JAX package gives accelerator
+    # entries, TPU, since the enum has no CUDA member
     HOST = 0
     TPU = 1
 
@@ -111,6 +118,35 @@ def _np_dtype_of(arr: np.ndarray) -> DataType:
         return _NP_TO_DTYPE[arr.dtype]
     except KeyError:
         raise ValueError(f"unsupported dtype {arr.dtype}") from None
+
+
+# torch dtype names (resolved by name, so this module imports no torch)
+_TORCH_TO_DTYPE = {
+    "uint8": DataType.UINT8, "int8": DataType.INT8,
+    "uint16": DataType.UINT16, "int16": DataType.INT16,
+    "uint32": DataType.UINT32, "int32": DataType.INT32,
+    "uint64": DataType.UINT64, "int64": DataType.INT64,
+    "float16": DataType.FLOAT16, "bfloat16": DataType.BFLOAT16,
+    "float32": DataType.FLOAT32, "float64": DataType.FLOAT64,
+}
+
+
+def _torch_dtype_of(tensor) -> DataType:
+    name = str(tensor.dtype).removeprefix("torch.")
+    try:
+        return _TORCH_TO_DTYPE[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {tensor.dtype}") from None
+
+
+def _host_view(host) -> np.ndarray:
+    """numpy view of a CPU tensor's storage; bf16, which numpy lacks, is
+    viewed as int16 (the entry's DataType says what the bytes are)."""
+    import torch
+
+    if host.dtype == torch.bfloat16:
+        host = host.view(torch.int16)
+    return host.numpy()
 
 
 # ---------------------------------------------------------------- exceptions
@@ -226,6 +262,12 @@ class TensorInfo:
     device: DeviceType = DeviceType.HOST
     allow_content_inequality: bool = False
     updated: bool = False   # set by sync_shared_state: content was received
+    _source: Any = field(default=None, repr=False)   # the tensor given
+    _host: Any = field(default=None, repr=False)     # CPU tensor behind data
+    # device-hash entries (from_torch_device): the digest computed on the
+    # card, and the callback that stages the bytes when the sync sends them
+    _precomputed_hash: Optional[int] = field(default=None, repr=False)
+    _materialize_cb: Any = field(default=None, repr=False)
 
     @staticmethod
     def from_numpy(name: str, arr: np.ndarray,
@@ -241,16 +283,82 @@ class TensorInfo:
     def from_torch(name: str, tensor,
                    allow_content_inequality: bool = False) -> "TensorInfo":
         """A CPU tensor's storage, shared with the entry (sync writes land
-        in the tensor). A CUDA tensor is refused: stage it to the host."""
-        if tensor.device.type != "cpu":
-            raise ValueError("torch tensor must be on CPU (stage a CUDA "
-                             "tensor through a host buffer first)")
-        return TensorInfo.from_numpy(name, tensor.detach().numpy(),
-                                     allow_content_inequality)
+        in the tensor; it must be contiguous), hashed by the core on the
+        host. A CUDA tensor is refused: use from_torch_device."""
+        src = tensor.detach()
+        if src.device.type != "cpu":
+            raise ValueError("torch tensor must be on CPU (a CUDA tensor's "
+                             "entry is TensorInfo.from_torch_device)")
+        if not src.is_contiguous():
+            raise ValueError("a CPU tensor must be contiguous (sync "
+                             "writes into its storage)")
+        return TensorInfo(name, _host_view(src), _torch_dtype_of(src),
+                          DeviceType.HOST, allow_content_inequality,
+                          _source=tensor, _host=src)
+
+    @staticmethod
+    def from_torch_device(name: str, tensor,
+                          allow_content_inequality: bool = False
+                          ) -> "TensorInfo":
+        """An entry whose `simple-tpu` digest is computed where the tensor
+        lies (H1 on a CUDA card: 8 bytes cross to the host). The bytes are
+        staged into a pageable host buffer only when the sync needs them:
+        when this peer serves the entry (the core calls the materialize
+        callback, once per sync) or receives it. A clean sync of N bytes
+        thus moves none of them.
+
+        Needs PCCLT_SS_HASH=simple-tpu, on every peer of the group; raises
+        otherwise, since a group whose peers hash differently would see
+        phantom drift at every sync. After the sync, torch_value() is the
+        authoritative content."""
+        if os.environ.get("PCCLT_SS_HASH") != "simple-tpu":
+            raise RuntimeError(
+                "TensorInfo.from_torch_device needs PCCLT_SS_HASH=simple-tpu "
+                "(every peer of the group must hash with the type the card "
+                "computes); set it, or use from_torch for staged entries")
+        import torch
+
+        from ..ops.hashing import torch_simplehash_device
+
+        src = tensor.detach()
+        # pageable and never written until the sync needs the bytes, so no
+        # page of it is resident on a clean sync (as the JAX package's
+        # np.empty); a D2H copy into it is synchronous
+        host = torch.empty(src.shape, dtype=src.dtype)
+        ti = TensorInfo(name, _host_view(host), _torch_dtype_of(src),
+                        DeviceType.TPU, allow_content_inequality,
+                        _source=tensor, _host=host)
+        if not allow_content_inequality:
+            ti._precomputed_hash = torch_simplehash_device(src)
+
+        def _materialize(_ctx):
+            # called from a native serving thread (ctypes takes the GIL):
+            # one D2H copy, which returns only once the bytes have landed
+            ctx = torch.cuda.device(src.device) if src.device.type == "cuda" \
+                else contextlib.nullcontext()
+            with ctx:
+                host.copy_(src)
+
+        ti._materialize_cb = _native.MaterializeFn(_materialize)
+        return ti
+
+    def torch_value(self):
+        """The entry's content after a sync, on the source tensor's
+        device: the source tensor itself (the object given to the
+        factory) when the sync wrote nothing, else the received bytes
+        (copied to the card for a CUDA source)."""
+        if self._source is None:
+            raise ValueError(f"entry {self.name!r} has no torch source")
+        if not self.updated:
+            return self._source
+        return self._host.to(self._source.device)
 
     def _as_c(self, keepalive: list) -> _native.TensorInfoC:
         name_b = self.name.encode()
         keepalive.append(name_b)
+        has_h = self._precomputed_hash is not None
+        if self._materialize_cb is not None:
+            keepalive.append(self._materialize_cb)
         return _native.TensorInfoC(
             name=name_b,
             data=self.data.ctypes.data_as(ctypes.c_void_p),
@@ -258,9 +366,10 @@ class TensorInfo:
             dtype=int(self.dtype),
             device=int(self.device),
             allow_content_inequality=1 if self.allow_content_inequality else 0,
-            precomputed_hash=0,
-            has_precomputed_hash=0,
-            materialize=_native.MaterializeFn(),
+            precomputed_hash=self._precomputed_hash if has_h else 0,
+            has_precomputed_hash=1 if has_h else 0,
+            materialize=self._materialize_cb if self._materialize_cb is not None
+            else _native.MaterializeFn(),
             materialize_ctx=None,
             updated=0,
         )

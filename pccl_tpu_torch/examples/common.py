@@ -34,6 +34,33 @@ def add_comm_args(ap: argparse.ArgumentParser) -> None:
                          "runs on OS-chosen ports draw the same tokens")
 
 
+def add_model_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--quantize", choices=["none", "minmax", "zps"], default="none")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", default="nano",
+                    help="preset: nano | tiny | gpt2 | gpt2-medium | gpt2-large "
+                         "| gpt2-xl (pccl_tpu_torch.models.gpt.PRESETS)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--attn", choices=["flash", "dense"], default="flash",
+                    help="flash: the CUDA kernels (plain versions on the CPU); "
+                         "dense: plain attention, CPU only")
+    ap.add_argument("--no-descent-check", action="store_true",
+                    help="exit 0 even if the last loss is not below the first "
+                         "(for runs too short to learn, e.g. a few steps at "
+                         "GPT-2 width)")
+
+
+def device_and_attention(ap: argparse.ArgumentParser, args):
+    """(torch.device, attn_fn) from --device and --attn."""
+    from pccl_tpu_torch._device import resolve_device
+    from pccl_tpu_torch.ops import flash_attention as fa
+
+    dev = resolve_device(args.device)
+    if args.attn == "dense" and dev.type != "cpu":
+        ap.error("--attn dense runs only with --device cpu")
+    return dev, fa.flash_attention if args.attn == "flash" else None
+
+
 def connect(args):
     """Create + connect a Communicator and wait for --min-world peers.
     Returns None under --solo."""
@@ -91,16 +118,38 @@ def quant_from_arg(name: str):
             "zps": QuantizationAlgorithm.ZERO_POINT_SCALE}[name]
 
 
-def report_final(first_loss, last_loss, comm, require_descent: bool = True) -> int:
-    """Print the FINAL line and return the exit code (0 = loss fell, or
-    require_descent is off; None losses mean no step ran). FINAL goes out
-    before destroy, so a wedged teardown cannot hide it."""
+def add_lr_schedule_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--lr-schedule", choices=["const", "cosine"],
+                    default="const",
+                    help="cosine = linear warmup then cosine decay to "
+                         "--min-lr over the run")
+    ap.add_argument("--warmup-steps", type=int, default=0)
+    ap.add_argument("--min-lr", type=float, default=0.0)
+
+
+def make_schedule(args, peak_lr: float, total_steps: int):
+    """The --lr-schedule flags -> a schedule (step -> lr) for
+    parallel/train.make_train_state, or None for a constant lr."""
+    if args.lr_schedule != "cosine":
+        return None
+    from pccl_tpu_torch.parallel.train import cosine_warmup_schedule
+
+    return cosine_warmup_schedule(peak_lr, total_steps, args.warmup_steps,
+                                  args.min_lr)
+
+
+def report_final(first_loss, last_loss, comm, require_descent: bool = True,
+                 extra: str = "") -> int:
+    """Print the FINAL line (with `extra` appended) and return the exit
+    code (0 = loss fell, or require_descent is off; None losses mean no
+    step ran). FINAL goes out before destroy, so a wedged teardown cannot
+    hide it."""
     if first_loss is None or last_loss is None:
-        print("FINAL no steps ran", flush=True)
+        print(f"FINAL no steps ran{extra}", flush=True)
         code = 0
     else:
-        print(f"FINAL first_loss={first_loss:.4f} last_loss={last_loss:.4f}",
-              flush=True)
+        print(f"FINAL first_loss={first_loss:.4f} last_loss={last_loss:.4f}"
+              f"{extra}", flush=True)
         code = 0 if last_loss < first_loss or not require_descent else 4
     if comm is not None:
         comm.destroy()

@@ -33,33 +33,17 @@ def main(argv=None) -> int:
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--inner-lr", type=float, default=1e-3)
     ap.add_argument("--outer-lr", type=float, default=0.7)
-    ap.add_argument("--quantize", choices=["none", "minmax", "zps"], default="none")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--model", default="nano",
-                    help="preset: nano | tiny | gpt2 | gpt2-medium | gpt2-large "
-                         "| gpt2-xl (pccl_tpu_torch.models.gpt.PRESETS)")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--attn", choices=["flash", "dense"], default="flash",
-                    help="flash: the CUDA kernels (plain versions on the CPU); "
-                         "dense: plain attention, CPU only")
-    ap.add_argument("--no-descent-check", action="store_true",
-                    help="exit 0 even if the last loss is not below the first "
-                         "(for runs too short to learn, e.g. a few steps at "
-                         "GPT-2 width)")
+    common.add_model_args(ap)
     args = ap.parse_args(argv)
 
     import torch
 
-    from pccl_tpu_torch._device import resolve_device
     from pccl_tpu_torch.models import gpt
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
 
-    dev = resolve_device(args.device)
-    if args.attn == "dense" and dev.type != "cpu":
-        ap.error("--attn dense runs only with --device cpu")
-    attn_fn = fa.flash_attention if args.attn == "flash" else None
+    dev, attn_fn = common.device_and_attention(ap, args)
 
     cfg = gpt.named_config(args.model, block_size=args.block)
     comm = common.connect(args)

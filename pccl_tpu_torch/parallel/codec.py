@@ -32,6 +32,13 @@ class Codec:
         return torch.cat([params[n].detach().float().reshape(-1)
                           for n in self.names])
 
+    @torch.no_grad()
+    def flat_into(self, params: Dict[str, torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+        """flat(params), written leaf by leaf into the fp32 vector `out`."""
+        for n, o, s, _, _ in self._slices():
+            out[o:o + s].copy_(params[n].detach().reshape(-1))
+        return out
+
     def unflat(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Fresh tensors, each cast back to its template dtype."""
         return {n: vec[o:o + s].reshape(shp).to(dt, copy=True)

@@ -7,13 +7,18 @@ and the optional warmup + cosine schedule becomes a `LambdaLR`. The step
 updates the parameter tensors in place; a sync-DiLoCo outer step writes the
 new outer parameters into the same tensors, so the optimizer keeps its
 moments across outer steps as the JAX loop does.
+
+DDP averages the gradients between the backward and the update, so the
+step is also offered as its two halves, `build_loss_and_grad` and `apply`.
+`opt_state_leaves` puts AdamW's state in optax's leaf order, the shared
+state a DDP peer offers and a late joiner adopts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -70,21 +75,111 @@ def make_train_state(seed: int, cfg: gpt.GPTConfig, device="cuda",
     return TrainState(params, opt, sched)
 
 
-def build_train_step(cfg: gpt.GPTConfig, attn_fn=None, remat=False,
-                     loss_chunk: "int | None" = None):
-    """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
-    not synchronised). attn_fn: the attention op (e.g.
-    ops.flash_attention); remat: per-block checkpointing; loss_chunk: the
-    head and loss in checkpointed sequence chunks."""
+def build_loss_and_grad(cfg: gpt.GPTConfig, attn_fn=None, remat=False,
+                        loss_chunk: "int | None" = None):
+    """Returns loss_and_grad(state, tokens, targets) -> loss (a detached
+    0-d tensor, not synchronised), leaving the gradients in each
+    parameter's `.grad`. attn_fn, remat and loss_chunk as in
+    build_train_step."""
 
-    def step(state: TrainState, tokens, targets):
+    def loss_and_grad(state: TrainState, tokens, targets):
         state.optimizer.zero_grad(set_to_none=True)
         loss = gpt.loss_fn(state.params, tokens, targets, cfg, attn_fn, remat,
                            loss_chunk)
         loss.backward()
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
         return loss.detach()
 
+    return loss_and_grad
+
+
+def apply(state: TrainState) -> None:
+    """One AdamW update from the parameters' `.grad`, in place, and one
+    step of the schedule."""
+    state.optimizer.step()
+    if state.scheduler is not None:
+        state.scheduler.step()
+
+
+def build_train_step(cfg: gpt.GPTConfig, attn_fn=None, remat=False,
+                     loss_chunk: "int | None" = None):
+    """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
+    not synchronised): build_loss_and_grad, then apply. attn_fn: the
+    attention op (e.g. ops.flash_attention); remat: per-block
+    checkpointing; loss_chunk: the head and loss in checkpointed sequence
+    chunks."""
+    loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk)
+
+    def step(state: TrainState, tokens, targets):
+        loss = loss_and_grad(state, tokens, targets)
+        apply(state)
+        return loss
+
     return step
+
+
+# ------------------------------------------------------------ AdamW state
+
+def _adam_state(state: TrainState, name: str) -> dict:
+    """AdamW's state of one parameter, created as torch.optim.AdamW creates
+    it at its first step when the optimizer has not stepped yet."""
+    p = state.params[name]
+    st = state.optimizer.state[p]
+    if not st:
+        group = state.optimizer.param_groups[0]
+        on_device = group.get("capturable") or group.get("fused")
+        scalar = torch.float64 if torch.get_default_dtype() == torch.float64 \
+            else torch.float32
+        st["step"] = torch.zeros((), dtype=scalar,
+                                 device=p.device if on_device else "cpu")
+        st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return st
+
+
+def opt_state_leaves(state: TrainState) -> List[torch.Tensor]:
+    """AdamW's state in the leaf order of `jax.tree.flatten` of the JAX
+    package's optax.adamw state: [count int32[], mu of each parameter in
+    sorted-name order, nu likewise], and with a schedule one more count
+    (optax's scale_by_schedule). 17 leaves for GPT's 8 parameters. mu and
+    nu are the optimizer's own tensors; count is a new int32 tensor on the
+    parameters' device."""
+    names = sorted(state.params)
+    sts = [_adam_state(state, n) for n in names]
+    count = int(sts[0]["step"].item())
+    dev = state.params[names[0]].device
+
+    def count_leaf():
+        return torch.tensor(count, dtype=torch.int32, device=dev)
+
+    leaves = [count_leaf()] + [s["exp_avg"] for s in sts] \
+        + [s["exp_avg_sq"] for s in sts]
+    if state.scheduler is not None:
+        leaves.append(count_leaf())
+    return leaves
+
+
+@torch.no_grad()
+def load_opt_state_leaves(state: TrainState, leaves) -> None:
+    """Write leaves in opt_state_leaves' order into the optimizer: mu and
+    nu into its tensors, and count into every parameter's step (the bias
+    correction reads it: a joiner that adopted the moments but kept its own
+    step would drift from the cohort at its next update) and the
+    schedule's."""
+    names = sorted(state.params)
+    n = len(names)
+    want = 1 + 2 * n + (state.scheduler is not None)
+    if len(leaves) != want:
+        raise ValueError(f"expected {want} optimizer leaves, got {len(leaves)}")
+    count = int(leaves[0].item())
+    for i, name in enumerate(names):
+        st = _adam_state(state, name)
+        for key, leaf in (("exp_avg", leaves[1 + i]), ("exp_avg_sq", leaves[1 + n + i])):
+            if leaf is not st[key]:
+                st[key].copy_(leaf)
+        st["step"].fill_(count)
+    if state.scheduler is not None:
+        sched = state.scheduler
+        sched.last_epoch = count
+        for group, base, fn in zip(state.optimizer.param_groups,
+                                   sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * fn(count)

@@ -1,5 +1,7 @@
-"""The flash-attention CUDA kernels against their plain versions, on a CUDA
-card (bf16). Skipped where there is none; run them on the card with
+"""The CUDA kernels against their plain versions, on a CUDA card: the
+flash-attention kernels (bf16) and H1, the `simple-tpu` hash (bit for bit,
+also against the numpy twin). Skipped where there is none; run them on the
+card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from pccl_tpu_torch.ops import flash_attention as fa
+from pccl_tpu_torch.ops import hashing
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +137,50 @@ def test_kernels_are_deterministic(cuda, D):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# H1 at chip_smoke.py's byte counts: under one word, ragged words, one and
+# two lane rows and just past them, 4 rows
+H1_BYTES = [1, 3, 4, 17, 65536 * 4, 65536 * 4 + 4, 65536 * 8 + 7, 1 << 20]
+
+
+def _h1_agrees(t):
+    hashing.reset_launch_counts()
+    planes = hashing.device_planes(t)
+    assert hashing.launches["simplehash_tpu"] == 1
+    assert torch.equal(planes, hashing.planes_plain(t))
+    host = t.reshape(-1).view(torch.uint8).cpu().numpy()
+    assert hashing.torch_simplehash_device(t) == hashing.simplehash_tpu(host)
+
+
+@pytest.mark.parametrize("nbytes", H1_BYTES)
+def test_h1_matches_plain_and_twin(cuda, nbytes):
+    g = torch.Generator(device=cuda).manual_seed(nbytes)
+    _h1_agrees(torch.randint(0, 256, (nbytes,), generator=g, device=cuda,
+                             dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("case", ["bf16", "int8", "uint64", "tok_emb", "view"])
+def test_h1_dtypes_and_layouts(cuda, case):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t = {
+        "bf16": lambda: torch.randn(3 * 65536 + 1, generator=g,
+                                    device=cuda).bfloat16(),
+        "int8": lambda: torch.randint(-128, 128, (131075,), generator=g,
+                                      device=cuda, dtype=torch.int8),
+        "uint64": lambda: torch.randint(-2 ** 62, 2 ** 62, (100003,), generator=g,
+                                        device=cuda,
+                                        dtype=torch.int64).view(torch.uint64),
+        "tok_emb": lambda: torch.randn((50304, 768), generator=g, device=cuda),
+        # not 16-byte aligned, and strided: hashed from a contiguous copy
+        "view": lambda: torch.randn(70001, generator=g, device=cuda)[1:],
+    }[case]()
+    _h1_agrees(t)
+    if case == "view":
+        _h1_agrees(torch.randn((300, 257), generator=g, device=cuda).t())
+
+
+def test_h1_is_deterministic(cuda):
+    x = torch.randn((590, 65536), device=cuda)
+    runs = [hashing.device_planes(x) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
