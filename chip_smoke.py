@@ -37,7 +37,21 @@ Phases, in order; any failure exits non-zero:
    cohort's parameters and AdamW state. Syncs move no bytes before it
    comes and after it adopted; it receives every entry's bytes; the three
    print equal digests at every common step and equal final parameters;
-   every kernel (K1-K3 and H1) is launched on every peer.
+   every kernel (K1-K3 and H1) is launched on every peer;
+7. main path, async DiLoCo on Llama-700m (GQA: 12 q heads over 4 kv heads,
+   head dim 128): a master and two `async_diloco` peers (B=2, T=2048, 8
+   inner steps, 3 outer steps). Every line must show world 2 and a finite
+   loss, K1-K3 launched on both peers, and equal outer-state digests at
+   every outer step and after finish(); logs tok_s, join_s (the wait for
+   the previous step's reduce) and each peer's peak allocation;
+7b. the outer step's routes at Llama-700m's parameter count: two peers in
+   this process, each a Diloco over one fp32 vector of 702,359,040 elements
+   on the card (outer lr 1, no momentum, inner = outer - (rank + 1)): the
+   pipelined windowed reduce through registered shm (4 windows), then the
+   staged and the unstaged ring, two outer steps each. The results must be
+   exactly -1.5 and -3 everywhere and bit-identical on both peers; logs
+   each step's profile (D2H, stage copy, ring, H2D and apply): the first
+   step pays each buffer's allocation and first touch, the second is warm.
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -58,6 +72,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -90,6 +105,8 @@ SHAPES = [
     ("main", dict(B=8, T=1024, H=12, Hkv=12, D=64, causal=True)),
     ("gqa", dict(B=1, T=2048, H=32, Hkv=8, D=128, causal=True)),
     ("ragged", dict(B=2, T=1000, H=4, Hkv=4, D=64, causal=False)),
+    # phase 7's attention: Llama-700m, G = 3 q heads per kv head
+    ("llama700m", dict(B=2, T=2048, H=12, Hkv=4, D=128, causal=True)),
 ]
 
 # Each output is held two ways, so that neither its largest elements nor its
@@ -111,6 +128,9 @@ HOST_LEAD_CYCLES = 10_000_000
 
 MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
 DDP = dict(model="gpt2", block=1024, batch=8, steps=80)
+ASYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=8,
+             outer_steps=3)
+LLAMA700M_PARAMS = 702_359_040
 PEER_TIMEOUT_S = 600
 
 
@@ -651,30 +671,20 @@ def dump_logs(names: list) -> None:
             log(f"  {name.removesuffix('.log')}| {line}")
 
 
-def phase_main_path() -> dict:
-    """Master + two sync-DiLoCo peers; returns per-kernel launch totals and
-    the peers' per-outer-step records."""
+def run_peer_pair(names: list, module: str, args: list) -> list:
+    """A master and two peers `python -m module --master-port P --base-port
+    B --data-shard rank --min-world 2 *args`, logging to LOG_DIR/names[rank];
+    returns each peer's (exit code, log text) once both have ended. Stops
+    every process it started."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     procs, files, peers = [], [], []
-    names = [f"peer{rank}.log" for rank in range(2)]
     try:
         port = start_master(procs, files, env)
         for rank, base in enumerate(free_ports(2, offsets=(0, 4, 8))):
             peers.append(spawn(procs, files, env, names[rank], [
-                "pccl_tpu_torch.examples.sync_diloco",
-                "--master-port", str(port), "--base-port", str(base),
-                "--data-shard", str(rank),
-                "--min-world", "2", "--model", MAIN["model"],
-                "--block", str(MAIN["block"]), "--batch", str(MAIN["batch"]),
-                "--inner-steps", str(MAIN["inner_steps"]),
-                "--outer-steps", str(MAIN["outer_steps"]),
-                "--device", "cuda", "--attn", "flash",
-                # 8 steps from random init at GPT-2 width cannot show
-                # learning (AdamW without warmup moves the loss up and
-                # down by ~0.1 there); the check here is the ring's
-                # invariant: equal outer digests on both peers
-                "--no-descent-check"]))
+                module, "--master-port", str(port), "--base-port", str(base),
+                "--data-shard", str(rank), "--min-world", "2", *args]))
         wait_all(peers, time.time() + PEER_TIMEOUT_S)
     finally:
         for p in procs:
@@ -682,11 +692,29 @@ def phase_main_path() -> dict:
         for f in files:
             f.close()
         dump_logs(names[:len(peers)])
+    return [(p.returncode, (LOG_DIR / n).read_text()) for n, p in zip(names, peers)]
+
+
+def phase_main_path() -> dict:
+    """Master + two sync-DiLoCo peers; returns per-kernel launch totals and
+    the peers' per-outer-step records."""
+    peers = run_peer_pair(
+        [f"peer{rank}.log" for rank in range(2)],
+        "pccl_tpu_torch.examples.sync_diloco",
+        ["--model", MAIN["model"],
+         "--block", str(MAIN["block"]), "--batch", str(MAIN["batch"]),
+         "--inner-steps", str(MAIN["inner_steps"]),
+         "--outer-steps", str(MAIN["outer_steps"]),
+         "--device", "cuda", "--attn", "flash",
+         # 8 steps from random init at GPT-2 width cannot show learning
+         # (AdamW without warmup moves the loss up and down by ~0.1 there);
+         # the check here is the ring's invariant: equal outer digests on
+         # both peers
+         "--no-descent-check"])
     records = []
-    for rank, p in enumerate(peers):
-        text = (LOG_DIR / names[rank]).read_text()
-        if p.returncode != 0:
-            raise SmokeError(f"peer {rank} exited {p.returncode}")
+    for rank, (code, text) in enumerate(peers):
+        if code != 0:
+            raise SmokeError(f"peer {rank} exited {code}")
         rows = [m.groups() for m in LINE.finditer(text)]
         if len(rows) != MAIN["outer_steps"] or "FINAL" not in text:
             raise SmokeError(f"peer {rank}: expected {MAIN['outer_steps']} outer "
@@ -832,6 +860,163 @@ def phase_ddp() -> dict:
     return {"launches": totals, "rows": rows, "adopted_at": k}
 
 
+# ------------------------------------------------------------------ phase 7
+
+ASYNC_LINE = re.compile(
+    r"outer (\d+) loss (\S+) world (\d+) revision (\d+) tok_s (\S+) "
+    r"outer_s (\S+) join_s (\S+) launches (\d+) (\d+) (\d+) digest (\w+)")
+ASYNC_FINAL = re.compile(r"FINAL .*revision=(\d+) digest=(\w+) "
+                         r"peak_alloc_mib=(\d+) peak_rss_mib=(\d+)")
+
+
+def phase_async() -> dict:
+    """Master + two async-DiLoCo Llama-700m peers; returns per-kernel launch
+    totals, the per-outer-step records and the FINAL fields."""
+    a = ASYNC
+    peers = run_peer_pair(
+        [f"async{rank}.log" for rank in range(2)],
+        "pccl_tpu_torch.examples.async_diloco",
+        ["--family", a["family"], "--model", a["model"],
+         "--block", str(a["block"]), "--batch", str(a["batch"]),
+         "--inner-steps", str(a["inner_steps"]),
+         "--outer-steps", str(a["outer_steps"]),
+         "--device", "cuda", "--attn", "flash",
+         # 24 steps from random init need not show learning; the checks
+         # here are the ring's invariants
+         "--no-descent-check"])
+    records, finals = [], []
+    for rank, (code, text) in enumerate(peers):
+        if code != 0:
+            raise SmokeError(f"async peer {rank} exited {code}")
+        rows = [m.groups() for m in ASYNC_LINE.finditer(text)]
+        final = ASYNC_FINAL.search(text)
+        if len(rows) != a["outer_steps"] or final is None:
+            raise SmokeError(f"async peer {rank}: expected {a['outer_steps']} "
+                             f"outer lines and FINAL with its digest")
+        records.append(rows)
+        finals.append(final.groups())
+    totals = {name: 0 for name in FLASH}
+    for rank, rows in enumerate(records):
+        for step, row in enumerate(rows):
+            loss, world, revision = float(row[1]), int(row[2]), int(row[3])
+            if not math.isfinite(loss) or world != 2 or revision != step:
+                raise SmokeError(f"async peer {rank}: loss {loss}, world {world}, "
+                                 f"revision {revision} at outer step {step}")
+            for name, n in zip(FLASH, row[7:10]):
+                if int(n) <= 0:
+                    raise SmokeError(f"async peer {rank}: {name} never launched")
+                totals[name] += int(n)
+    for step in range(a["outer_steps"]):
+        digests = {rows[step][10] for rows in records}
+        if len(digests) != 1:
+            raise SmokeError(f"async outer step {step}: digests differ across "
+                             f"peers: {sorted(digests)}")
+    if len({f[1] for f in finals}) != 1 \
+            or any(int(f[0]) != a["outer_steps"] for f in finals):
+        raise SmokeError(f"async FINAL: revisions and digests {finals} differ")
+    for rank, rows in enumerate(records):
+        log(f"  async peer {rank}: tok_s {' '.join(r[4] for r in rows)}; outer_s "
+            f"{' '.join(r[5] for r in rows)}; join_s {' '.join(r[6] for r in rows)}; "
+            f"peak allocated MiB {finals[rank][2]}, peak host RSS MiB "
+            f"{finals[rank][3]}")
+    log(f"async path: 2 Llama-700m peers, world 2, digests equal at every outer "
+        f"step and after finish() ({finals[0][1]}), launches {totals}")
+    return {"launches": totals, "records": records, "finals": finals}
+
+
+# ------------------------------------------------------------------ phase 7b
+
+ROUTES = [("pipelined", dict(shm_staging=True, comm_windows=4)),
+          ("staged", dict(shm_staging=True, comm_windows=1)),
+          ("unstaged", dict(shm_staging=False, comm_windows=1))]
+
+
+def phase_pipelined() -> dict:
+    """Two peers in this process, each a Diloco over one fp32 vector of
+    Llama-700m's parameter count on the card, two outer steps through each
+    route of the outer step; returns {route: [[profile of each step] of
+    each peer]}."""
+    import torch
+
+    from pccl_tpu_torch.comm import Communicator, MasterNode
+    from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+
+    port, = free_ports(1)
+    bases = free_ports(2, offsets=(0, 4, 8))
+    master = MasterNode("127.0.0.1", port)
+    master.run()
+    outs, profiles, exact, errors = {}, {}, {}, []
+
+    def peer(rank):
+        comm = Communicator("127.0.0.1", master.port, p2p_port=bases[rank],
+                            ss_port=bases[rank] + 4, bench_port=bases[rank] + 8)
+        try:
+            comm.connect()
+            deadline = time.time() + 60
+            while comm.world_size < 2:
+                if time.time() > deadline:
+                    raise SmokeError("7b: the world never reached 2")
+                if comm.are_peers_pending():
+                    comm.update_topology()
+                time.sleep(0.01)
+            for route, kw in ROUTES:
+                cfg = DilocoConfig(outer_lr=1.0, outer_momentum=0.0,
+                                   nesterov=False, profile=True, **kw)
+                w = torch.zeros(LLAMA700M_PARAMS, device="cuda")
+                dl = Diloco(comm, {"w": w}, cfg)
+                profiles[route, rank], exact[route, rank] = [], []
+                for step in range(2):
+                    # the pseudo-gradient outer - inner is rank + 1
+                    # everywhere; outer_step writes the new outer into w
+                    dl.outer_step({"w": w.sub_(rank + 1)})
+                    profiles[route, rank].append(dl.last_profile)
+                    exact[route, rank].append(bool((w == -1.5 * (step + 1)).all()))
+                outs[route, rank] = w
+                del dl
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append((rank, repr(e)))
+        finally:
+            comm.destroy()
+
+    threads = [threading.Thread(target=peer, args=(r,), daemon=True)
+               for r in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=PEER_TIMEOUT_S)
+    finally:
+        master.interrupt()
+        master.destroy()
+    if any(t.is_alive() for t in threads):
+        raise SmokeError(f"7b: a peer thread still runs after {PEER_TIMEOUT_S} s")
+    if errors:
+        raise SmokeError(f"7b: peer failures: {errors}")
+    res = {}
+    for route, _ in ROUTES:
+        ok = exact[route, 0] + exact[route, 1]
+        same = torch.equal(outs[route, 0], outs[route, 1])
+        for rank in range(2):
+            for step, p in enumerate(profiles[route, rank]):
+                phases = ", ".join(f"{k} {v:.3f}" for k, v in p.items()
+                                   if not k.endswith("_cpu"))
+                # process_time counts both peers' threads of this process
+                cpu = ", ".join(f"{k} {v:.3f}" for k, v in p.items()
+                                if k.endswith("_cpu"))
+                log(f"  7b {route} peer {rank} step {step} "
+                    f"({'cold' if step == 0 else 'warm'}) (s): {phases}; "
+                    f"process CPU s: {cpu}")
+        log(f"  7b {route}: {LLAMA700M_PARAMS} elements, exactly -1.5 then -3 "
+            f"{ok}, bit-identical across peers {same}")
+        if not (all(ok) and same):
+            raise SmokeError(f"7b {route}: the averaged updates are not exact and "
+                             f"equal on both peers")
+        res[route] = [profiles[route, r] for r in range(2)]
+    del outs
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -869,22 +1054,31 @@ def main() -> int:
     fa.reset_launch_counts()
     hashing.reset_launch_counts()
     ddp = timed("ddp", phase_ddp)
+    fa.reset_launch_counts()
+    async_path = timed("async", phase_async)
+    timed("pipelined", phase_pipelined)
 
-    m = kres["main"]
+    m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                  "flash_bwd_dkv": ("dk", "dv")}
     kernels = []
     for name, source, replaces, *_ in KERNELS:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": main_path["launches"].get(name, 0) + ddp["launches"][name]}
+               "launches": main_path["launches"].get(name, 0) + ddp["launches"][name]
+               + async_path["launches"].get(name, 0)}
         if name in FLASH:
-            row.update({
-                "max_abs_err": max(m["errs"][o]["max_abs"] for o in out_names[name]),
-                "ms": m["ms"][name], "plain_ms": m["plain_ms"][name],
-                "bound_ms": m["bounds"][name][0], "bound_by": m["bounds"][name][1],
-                "library_ms": m["library_ms"][name],
-                "ok": all(r["ok"] for r in kres.values())})
+            def at(r):
+                return {
+                    "max_abs_err": max(r["errs"][o]["max_abs"] for o in out_names[name]),
+                    "ms": r["ms"][name], "plain_ms": r["plain_ms"][name],
+                    "bound_ms": r["bounds"][name][0], "bound_by": r["bounds"][name][1],
+                    "library_ms": r["library_ms"][name]}
+
+            # times at the GPT-2 paths' shape, and at phase 7's beside them
+            row.update(at(m))
+            row["llama700m"] = at(ll)
+            row["ok"] = all(r["ok"] for r in kres.values())
         else:   # H1, times at tok_emb; the error over phase 3b's cases,
             # whose digests were compared exactly; no library call
             row.update({"max_abs_err": hres["max_abs_err"], "ms": hres["ms"],

@@ -26,4 +26,5 @@ from .api import (  # noqa: F401
     SharedStateSyncStrategy,
     TensorInfo,
     TooFewPeersError,
+    shm_ndarray,
 )

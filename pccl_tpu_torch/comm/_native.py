@@ -170,6 +170,12 @@ def _declare(lib):
     lib.pccltHashBuffer.restype = c.c_uint64
     lib.pccltHashBuffer.argtypes = [c.c_int, c.c_void_p, c.c_uint64]
 
+    # registered shared-memory regions (api.shm_ndarray)
+    lib.pccltShmAlloc.restype = c.c_int
+    lib.pccltShmAlloc.argtypes = [c.c_uint64, P(c.c_void_p)]
+    lib.pccltShmFree.restype = c.c_int
+    lib.pccltShmFree.argtypes = [c.c_void_p]
+
     lib.pccltSynchronizeSharedState.restype = c.c_int
     lib.pccltSynchronizeSharedState.argtypes = [c.c_void_p, P(SharedStateC), c.c_int,
                                                 P(SharedStateSyncInfo)]

@@ -21,6 +21,7 @@ import ctypes
 import enum
 import os
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -191,6 +192,27 @@ def _check(code: int, what: str = "") -> None:
         Result.MASTER_UNREACHABLE: MasterUnreachableError,
     }.get(r, PcclError)
     raise cls(r, what)
+
+
+# ---------------------------------------------------- registered shm buffers
+
+def shm_ndarray(shape, dtype=np.float32) -> np.ndarray:
+    """A numpy array in a registered shared-memory region (pccltShmAlloc).
+    A collective whose buffers lie in a registered region takes the core's
+    same-host zero-copy path: a local peer maps the region and reduces
+    straight out of it. Any array works with every op; this one is for
+    large staging buffers (DiLoCo's outer-step vector).
+
+    The region is a memfd, so host memory bounds it, not /dev/shm's size.
+    It is freed when the array and every view of it are gone."""
+    lib = _native.load()
+    shape = (int(shape),) if np.isscalar(shape) else tuple(int(s) for s in shape)
+    nbytes = max(1, int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize)
+    ptr = ctypes.c_void_p()
+    _check(lib.pccltShmAlloc(nbytes, ctypes.byref(ptr)), "shm alloc")
+    buf = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
+    weakref.finalize(buf, lib.pccltShmFree, ctypes.c_void_p(ptr.value))
+    return np.ndarray(shape, dtype=dtype, buffer=buf)
 
 
 # ---------------------------------------------------------------- master

@@ -39,7 +39,10 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model", default="nano",
                     help="preset: nano | tiny | gpt2 | gpt2-medium | gpt2-large "
-                         "| gpt2-xl (pccl_tpu_torch.models.gpt.PRESETS)")
+                         "| gpt2-xl (pccl_tpu_torch.models.gpt.PRESETS); with "
+                         "--family llama: nano | tiny | 700m | 1b | 7b | 8b")
+    ap.add_argument("--family", choices=["gpt", "llama"], default="gpt",
+                    help="model family (pccl_tpu_torch.models)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn", choices=["flash", "dense"], default="flash",
                     help="flash: the CUDA kernels (plain versions on the CPU); "
@@ -48,6 +51,15 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="exit 0 even if the last loss is not below the first "
                          "(for runs too short to learn, e.g. a few steps at "
                          "GPT-2 width)")
+
+
+def model_config(args):
+    """The --family preset named by --model, with --block as the sequence
+    length."""
+    from pccl_tpu_torch.models import gpt, llama
+
+    family = llama if args.family == "llama" else gpt
+    return family.named_config(args.model, block_size=args.block)
 
 
 def device_and_attention(ap: argparse.ArgumentParser, args):

@@ -1,5 +1,5 @@
-"""Sync DiLoCo on GPT: H inner AdamW steps, then one outer reduce over the
-native ring.
+"""Sync DiLoCo on GPT or Llama (--family): H inner AdamW steps, then one
+outer reduce over the native ring.
 
 Run (2 peers on one card):
     python -m pccl_tpu_torch.comm.master --port 48500 &
@@ -33,25 +33,28 @@ def main(argv=None) -> int:
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--inner-lr", type=float, default=1e-3)
     ap.add_argument("--outer-lr", type=float, default=0.7)
+    ap.add_argument("--shm-staging", action="store_true",
+                    help="stage pseudo-gradients in a registered shm buffer "
+                         "(zero-copy ring when peers share this host)")
     common.add_model_args(ap)
     args = ap.parse_args(argv)
 
     import torch
 
-    from pccl_tpu_torch.models import gpt
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
 
     dev, attn_fn = common.device_and_attention(ap, args)
 
-    cfg = gpt.named_config(args.model, block_size=args.block)
+    cfg = common.model_config(args)
     comm = common.connect(args)
     state = train_lib.make_train_state(args.seed, cfg, dev, lr=args.inner_lr)
     step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn)
     dl = Diloco(comm, state.params,
                 DilocoConfig(inner_steps=args.inner_steps, outer_lr=args.outer_lr,
-                             quantization=common.quant_from_arg(args.quantize)))
+                             quantization=common.quant_from_arg(args.quantize),
+                             shm_staging=args.shm_staging))
     rng = common.data_rng(args)
 
     def sync():

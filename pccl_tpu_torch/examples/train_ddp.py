@@ -6,7 +6,7 @@ adopt the cohort's state.
 The port of examples/nanogpt_ddp/train_ddp.py. One peer is one card; its
 gradients cross the ring as one flat fp32 vector
 (parallel/hierarchical.py). The shared state holds, in the JAX loop's
-names and order, `ddp.p{i}` (the 8 parameters, sorted by name), `ddp.o{i}`
+names and order, `ddp.p{i}` (the parameters, sorted by name), `ddp.o{i}`
 (AdamW's state in optax's leaf order, parallel/train.opt_state_leaves) and
 `ddp.step` (a host u64). With PCCLT_SS_HASH=simple-tpu, set on every peer
 of the group, the entries are hashed on the card by H1
@@ -130,7 +130,6 @@ def main(argv=None) -> int:
 
     from pccl_tpu_torch.comm import (KickedError, PcclError, SharedState,
                                      SharedStateSyncStrategy)
-    from pccl_tpu_torch.models import gpt
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.ops import hashing
     from pccl_tpu_torch.parallel import train as train_lib
@@ -143,7 +142,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(str(e))
 
-    cfg = gpt.named_config(args.model, block_size=args.block)
+    cfg = common.model_config(args)
     comm = common.connect(args)
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.lr,

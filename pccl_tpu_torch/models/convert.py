@@ -11,14 +11,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import gpt
+from ..parallel.train import family
 
 
-def params_from_numpy(np_params: Dict[str, np.ndarray], cfg: gpt.GPTConfig,
+def params_from_numpy(np_params: Dict[str, np.ndarray], cfg,
                       device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Tensors on `device` from a numpy dict whose names and shapes are
-    exactly those of gpt.init_params(cfg)."""
-    want = gpt.param_shapes(cfg)
+    exactly those of init_params(cfg) of the config's family (a GPTConfig
+    or a LlamaConfig)."""
+    want = family(cfg).param_shapes(cfg)
     if set(np_params) != set(want):
         raise ValueError(f"parameter names differ: missing "
                          f"{sorted(set(want) - set(np_params))}, unexpected "

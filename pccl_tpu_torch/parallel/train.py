@@ -1,4 +1,5 @@
-"""The inner train step: AdamW over the GPT parameter dict.
+"""The inner train step: AdamW over a model's parameter dict (GPT or
+Llama, dispatched on the config's family by `family`).
 
 Matches pccl_tpu/parallel/train.py on one device: `optax.adamw(lr, b1=0.9,
 b2=0.95, weight_decay=0.1)` (eps 1e-8, no mask, so the gains and the
@@ -23,7 +24,14 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .._device import resolve_device
-from ..models import gpt
+from ..models import gpt, llama
+
+
+def family(cfg):
+    """The model module of a config's family: models.llama for a
+    LlamaConfig, else models.gpt (the JAX package's train.family, without
+    the sharding rules)."""
+    return llama if isinstance(cfg, llama.LlamaConfig) else gpt
 
 
 @dataclasses.dataclass
@@ -53,7 +61,7 @@ def cosine_warmup_schedule(lr: float, total_steps: int, warmup_steps: int = 0,
     return schedule
 
 
-def make_train_state(seed: int, cfg: gpt.GPTConfig, device="cuda",
+def make_train_state(seed: int, cfg, device="cuda",
                      lr: float = 3e-4, schedule=None,
                      params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
     """Parameters (from `seed`, made on the CPU so every device gets the
@@ -61,7 +69,7 @@ def make_train_state(seed: int, cfg: gpt.GPTConfig, device="cuda",
     optional schedule (step -> lr, used instead of the constant lr)."""
     dev = resolve_device(device)
     if params is None:
-        params = gpt.init_params(torch.Generator().manual_seed(seed), cfg)
+        params = family(cfg).init_params(torch.Generator().manual_seed(seed), cfg)
     params = {k: v.detach().to(dev, torch.float32).requires_grad_(True)
               for k, v in params.items()}
     opt = torch.optim.AdamW(list(params.values()), lr=lr, betas=(0.9, 0.95),
@@ -75,17 +83,18 @@ def make_train_state(seed: int, cfg: gpt.GPTConfig, device="cuda",
     return TrainState(params, opt, sched)
 
 
-def build_loss_and_grad(cfg: gpt.GPTConfig, attn_fn=None, remat=False,
+def build_loss_and_grad(cfg, attn_fn=None, remat=False,
                         loss_chunk: "int | None" = None):
     """Returns loss_and_grad(state, tokens, targets) -> loss (a detached
     0-d tensor, not synchronised), leaving the gradients in each
     parameter's `.grad`. attn_fn, remat and loss_chunk as in
     build_train_step."""
+    model = family(cfg)
 
     def loss_and_grad(state: TrainState, tokens, targets):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = gpt.loss_fn(state.params, tokens, targets, cfg, attn_fn, remat,
-                           loss_chunk)
+        loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn, remat,
+                             loss_chunk)
         loss.backward()
         return loss.detach()
 
@@ -100,7 +109,7 @@ def apply(state: TrainState) -> None:
         state.scheduler.step()
 
 
-def build_train_step(cfg: gpt.GPTConfig, attn_fn=None, remat=False,
+def build_train_step(cfg, attn_fn=None, remat=False,
                      loss_chunk: "int | None" = None):
     """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
     not synchronised): build_loss_and_grad, then apply. attn_fn: the
@@ -140,9 +149,9 @@ def opt_state_leaves(state: TrainState) -> List[torch.Tensor]:
     """AdamW's state in the leaf order of `jax.tree.flatten` of the JAX
     package's optax.adamw state: [count int32[], mu of each parameter in
     sorted-name order, nu likewise], and with a schedule one more count
-    (optax's scale_by_schedule). 17 leaves for GPT's 8 parameters. mu and
-    nu are the optimizer's own tensors; count is a new int32 tensor on the
-    parameters' device."""
+    (optax's scale_by_schedule). 17 leaves for GPT's 8 parameters, 23 for
+    Llama's 11. mu and nu are the optimizer's own tensors; count is a new
+    int32 tensor on the parameters' device."""
     names = sorted(state.params)
     sts = [_adam_state(state, n) for n in names]
     count = int(sts[0]["step"].item())

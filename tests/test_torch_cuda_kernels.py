@@ -47,6 +47,10 @@ SHAPES = [  # B, T, H, Hkv, D, causal
     (1, 63, 2, 2, 128, False),
     (1, 64, 2, 1, 128, True),
     (1, 191, 8, 2, 128, True),
+    # Llama-700m's attention: G = 3 q heads per kv head at Dh = 128, the
+    # shape of chip_smoke.py's phase 7; and a ragged G = 3 walk
+    (2, 2048, 12, 4, 128, True),
+    (1, 200, 6, 2, 128, False),
 ]
 
 
