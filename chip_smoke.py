@@ -6,8 +6,10 @@
 Phases, in order; any failure exits non-zero:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: the CUDA kernels (one nvcc per pccl_tpu_torch/csrc/*.cu, all at
-   once, with ptxas resource reports) and, when no library is found,
-   libpcclt.so from pccl_tpu/native/src, in parallel. Every kernel must
+   once, with ptxas resource reports) and libpcclt.so from
+   pccl_tpu/native/src, in parallel. The library is always rebuilt here
+   (a copied tree may carry one built on another machine) and every
+   process of the smoke loads it through PCCLT_LIB. Every kernel must
    show 0 bytes of spills, and K1, K2 and K3, where cuobjdump is found,
    HGMMA and UTMALDG instructions in their SASS (whose highest register
    index is logged);
@@ -42,8 +44,9 @@ Phases, in order; any failure exits non-zero:
    head dim 128): a master and two `async_diloco` peers (B=2, T=2048, 8
    inner steps, 3 outer steps). Every line must show world 2 and a finite
    loss, K1-K3 launched on both peers, and equal outer-state digests at
-   every outer step and after finish(); logs tok_s, join_s (the wait for
-   the previous step's reduce) and each peer's peak allocation;
+   every outer step and after finish(), and the --profile table of each;
+   logs tok_s, join_s (the wait for the previous step's reduce) and each
+   peer's peak allocation;
 7b. the outer step's routes at Llama-700m's parameter count: two peers in
    this process, each a Diloco over one fp32 vector of 702,359,040 elements
    on the card (outer lr 1, no momentum, inner = outer - (rank + 1)): the
@@ -51,7 +54,35 @@ Phases, in order; any failure exits non-zero:
    staged and the unstaged ring, two outer steps each. The results must be
    exactly -1.5 and -3 everywhere and bit-identical on both peers; logs
    each step's profile (D2H, stage copy, ring, H2D and apply): the first
-   step pays each buffer's allocation and first touch, the second is warm.
+   step pays each buffer's allocation and first touch, the second is warm;
+8. accumulation and remat at Llama-700m (L=24, T=2048), in this process:
+   on the same weights and 4 sequences, train.build_loss_and_grad with
+   remat False, True, "dots" and "sqrt" at A=1, B=4, then A=2, B=2 at
+   remat False. Each logs what the forward holds for the backward
+   (allocation when loss_fn returns, less the allocation before), the
+   peak over the call, the step ms, K1-K3 launches, the loss and the
+   gradients' cosine against remat False at A=1. Fails unless every loss
+   is within 1e-3 nats and every cosine >= 0.9998 of that reference; K2
+   and K3 launch L times per microbatch; K1 L times for False, 2L for True
+   and "dots", 3L - L/G for "sqrt" (G = 4; the CPU test
+   test_torch_remat.py explains the early stop behind - L/G); what the
+   forward holds orders sqrt < True < dots < False; and the peak at A=2
+   lies below the peak at A=1;
+9. sync DiLoCo resume, GPT-2 widths with byte-level text data (vocab
+   256), two peers (B=8, T=1024, H=4, cosine schedule, a checkpoint every
+   outer step, --profile and --trace-out): 2 outer steps, then the peers
+   and the master stop and a fresh master and both peers run to 3. Each must print `resumed from
+   outer step 2` with the digest outer step 1 printed, the peers' digests
+   must agree at every step, each trace must hold one process_name event
+   and one event per section entered, and the table must list `inner` and
+   `outer/ring+sgd`;
+10. DDP with accumulation, eval and resume, the same model, two peers
+   (PCCLT_SS_HASH=simple-tpu; A=2, B=4, T=1024, eval every 3 steps, a
+   checkpoint at step 6): 6 steps, then both restart against a
+   fresh master and run to 9. Both must print `resumed from step 6`, probe
+   at revision 0, agree on the digest at every step and on the final
+   parameters, and print eval lines; logs peak allocation, ring_s, tok_s
+   (A·B·T tokens a step) and the checkpoint's size and times.
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -192,17 +223,20 @@ def phase_build() -> None:
     from pccl_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    found = _native.find_library()
     with ThreadPoolExecutor(2) as ex:
         kernels = ex.submit(_build.build_kernels, True)
-        core = ex.submit(_build.build_pcclt) if found is None else None
+        core = ex.submit(_build.build_pcclt, True)
         report = kernels.result()
-        lib = core.result() if core is not None else found
+        lib = core.result()
+    # this process and every peer it starts load the library just built
+    os.environ["PCCLT_LIB"] = str(lib)
+    if _native.find_library() != lib:
+        raise SmokeError(f"the port would load {_native.find_library()}, not {lib}")
     for line in report.splitlines():
         if re.search(r"Compiling entry|registers|spill|warning", line):
             log(f"  ptxas: {line.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s (kernels in {_build.BUILD_DIR}; "
-        f"libpcclt {'built' if core is not None else 'found'} at {lib})")
+        f"libpcclt rebuilt at {lib})")
     spilled = spills(report)
     cuobjdump = shutil.which("cuobjdump") \
         or str(Path(_build.nvcc_path()).parent / "cuobjdump")
@@ -671,20 +705,22 @@ def dump_logs(names: list) -> None:
             log(f"  {name.removesuffix('.log')}| {line}")
 
 
-def run_peer_pair(names: list, module: str, args: list) -> list:
+def run_peer_pair(names: list, module: str, args: list, per_rank=None,
+                  env_extra=None) -> list:
     """A master and two peers `python -m module --master-port P --base-port
-    B --data-shard rank --min-world 2 *args`, logging to LOG_DIR/names[rank];
-    returns each peer's (exit code, log text) once both have ended. Stops
-    every process it started."""
+    B --data-shard rank --min-world 2 *args *per_rank(rank)`, logging to
+    LOG_DIR/names[rank]; returns each peer's (exit code, log text) once
+    both have ended. Stops every process it started."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", **(env_extra or {}))
     procs, files, peers = [], [], []
     try:
         port = start_master(procs, files, env)
         for rank, base in enumerate(free_ports(2, offsets=(0, 4, 8))):
             peers.append(spawn(procs, files, env, names[rank], [
                 module, "--master-port", str(port), "--base-port", str(base),
-                "--data-shard", str(rank), "--min-world", "2", *args]))
+                "--data-shard", str(rank), "--min-world", "2", *args,
+                *(per_rank(rank) if per_rank else [])]))
         wait_all(peers, time.time() + PEER_TIMEOUT_S)
     finally:
         for p in procs:
@@ -743,7 +779,7 @@ def phase_main_path() -> dict:
 # ------------------------------------------------------------------ phase 6
 
 DDP_LINE = re.compile(
-    r"^step (\d+) loss (\S+) world (\d+) revision \d+ tok_s (\S+) ring_s (\S+) "
+    r"^step (\d+) loss (\S+) world (\d+) revision (\d+) tok_s (\S+) ring_s (\S+) "
     r"sync_s (\S+) tx (\d+) rx (\d+) launches (\d+) (\d+) (\d+) (\d+) "
     r"digest (\w+)$", re.M)
 # everything a late joiner receives: parameters, mu and nu in fp32, AdamW's
@@ -753,8 +789,8 @@ ADOPT_BYTES = 3 * GPT2_PARAM_BYTES + 4 + 8
 
 def ddp_rows(text: str) -> dict:
     """{step: dict of the step line's fields} of one peer's log."""
-    keys = ("loss", "world", "tok_s", "ring_s", "sync_s", "tx", "rx", *FLASH,
-            "simplehash_tpu", "digest")
+    keys = ("loss", "world", "revision", "tok_s", "ring_s", "sync_s", "tx", "rx",
+            *FLASH, "simplehash_tpu", "digest")
     rows = {}
     for m in DDP_LINE.finditer(text):
         row = dict(zip(keys, m.groups()[1:]))
@@ -880,7 +916,7 @@ def phase_async() -> dict:
          "--block", str(a["block"]), "--batch", str(a["batch"]),
          "--inner-steps", str(a["inner_steps"]),
          "--outer-steps", str(a["outer_steps"]),
-         "--device", "cuda", "--attn", "flash",
+         "--device", "cuda", "--attn", "flash", "--profile",
          # 24 steps from random init need not show learning; the checks
          # here are the ring's invariants
          "--no-descent-check"])
@@ -895,6 +931,9 @@ def phase_async() -> dict:
                              f"outer lines and FINAL with its digest")
         records.append(rows)
         finals.append(final.groups())
+        table = {line.split()[0] for line in text.splitlines() if line.split()}
+        if not {"inner", "outer/async", "outer/finish"} <= table:
+            raise SmokeError(f"async peer {rank}: no --profile table")
     totals = {name: 0 for name in FLASH}
     for rank, rows in enumerate(records):
         for step, row in enumerate(rows):
@@ -1017,6 +1056,294 @@ def phase_pipelined() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 8
+
+REMAT = dict(model="700m", block=2048, batch=4)
+# (remat, microbatches A): A x B/A sequences a step
+REMAT_RUNS = [(False, 1), (True, 1), ("dots", 1), ("sqrt", 1), (False, 2)]
+
+
+def phase_remat() -> dict:
+    """Llama-700m through train.build_loss_and_grad in each remat mode, and
+    with accumulation; returns the launch totals and each run's figures."""
+    import torch
+
+    from pccl_tpu_torch.models import llama
+    from pccl_tpu_torch.models._common import _sqrt_divisor
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    dev = torch.device("cuda")
+    B, T = REMAT["batch"], REMAT["block"]
+    cfg = llama.named_config(REMAT["model"], block_size=T)
+    L, G = cfg.n_layer, _sqrt_divisor(cfg.n_layer)
+    state = train_lib.make_train_state(0, cfg, dev)
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+    targets = torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+    names = sorted(state.params)
+
+    # what loss_fn leaves allocated when it returns: the first microbatch's
+    # (the entry point looks loss_fn up at each call)
+    held = {}
+    loss_fn = llama.loss_fn
+
+    def measured(*a, **kw):
+        out = loss_fn(*a, **kw)
+        held.setdefault("bytes", torch.cuda.memory_allocated(dev) - held["base"])
+        return out
+
+    k1 = {False: L, True: 2 * L, "dots": 2 * L, "sqrt": 3 * L - L // G}
+    runs, ref = [], None
+    llama.loss_fn = measured
+    try:
+        for remat, A in REMAT_RUNS:
+            lg = train_lib.build_loss_and_grad(cfg, attn_fn=fa.flash_attention,
+                                               remat=remat, accum_steps=A)
+            x, y = (tokens, targets) if A == 1 else \
+                (tokens.reshape(A, B // A, T), targets.reshape(A, B // A, T))
+            held["base"] = torch.cuda.memory_allocated(dev)
+            lg(state, x, y)                      # warm-up
+            state.optimizer.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            held.clear()
+            held["base"] = base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = dict(fa.launches)
+            loss = float(lg(state, x, y))
+            torch.cuda.synchronize()
+            run = {"remat": remat, "A": A, "B": B // A, "loss": loss,
+                   "held": held["bytes"],
+                   "peak": torch.cuda.max_memory_allocated(dev) - base,
+                   "launches": {k: fa.launches[k] - before[k] for k in FLASH}}
+            grads = torch.cat([state.params[n].grad.reshape(-1) for n in names])
+            # the step's time: the median of three more calls (the host
+            # clock around each, ending in a synchronisation), which leave
+            # the same gradients
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                lg(state, x, y)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            run["ms"] = ms = statistics.median(times)
+            state.optimizer.zero_grad(set_to_none=True)
+            if ref is None:
+                ref = (loss, grads)
+            run["loss_gap"] = abs(loss - ref[0])
+            run["cosine"] = torch.nn.functional.cosine_similarity(
+                grads, ref[1], dim=0).item()
+            run["bitwise"] = torch.equal(grads, ref[1])
+            del grads
+            runs.append(run)
+            log(f"  8 remat={remat!s:5} A={A} B={B // A}: held after forward "
+                f"{run['held'] / 2**20:.0f} MiB, peak {run['peak'] / 2**20:.0f} MiB, "
+                f"step {ms:.1f} ms ({' '.join(f'{t:.1f}' for t in times)}), "
+                f"launches K1/K2/K3 {run['launches']['flash_fwd']}/"
+                f"{run['launches']['flash_bwd_dq']}/{run['launches']['flash_bwd_dkv']}, "
+                f"loss {loss:.6f} (gap {run['loss_gap']:.2e}), grad cosine "
+                f"{run['cosine']:.7f}, bitwise equal {run['bitwise']}")
+    finally:
+        llama.loss_fn = loss_fn
+        del state, ref
+        torch.cuda.empty_cache()
+    # every launch of the phase: the warm-up, measured and timed calls
+    totals = dict(fa.launches)
+    for run in runs:
+        remat, A, n = run["remat"], run["A"], run["launches"]
+        want = {"flash_fwd": A * k1[remat], "flash_bwd_dq": A * L,
+                "flash_bwd_dkv": A * L}
+        if n != want:
+            raise SmokeError(f"8 remat={remat} A={A}: launches {n}, expected {want}")
+        if not (math.isfinite(run["loss"]) and run["loss_gap"] <= 1e-3
+                and run["cosine"] >= 0.9998):
+            raise SmokeError(f"8 remat={remat} A={A} disagrees with remat=False: "
+                             f"loss gap {run['loss_gap']}, cosine {run['cosine']}")
+    by = {(r["remat"], r["A"]): r for r in runs}
+    order = [by["sqrt", 1]["held"], by[True, 1]["held"], by["dots", 1]["held"],
+             by[False, 1]["held"]]
+    if not order == sorted(order) or len(set(order)) != 4:
+        raise SmokeError(f"8: held after forward sqrt/True/dots/False {order} is "
+                         f"not increasing")
+    if not by[False, 2]["peak"] < by[False, 1]["peak"]:
+        raise SmokeError(f"8: peak at A=2 {by[False, 2]['peak']} is not below A=1's "
+                         f"{by[False, 1]['peak']}")
+    log(f"remat path: Llama-700m L={L} G={G} B={B} T={T}: every mode within the "
+        f"limits; held sqrt < True < dots < False; peak A=2 < A=1; launches {totals}")
+    return {"launches": totals, "runs": runs}
+
+
+# ------------------------------------------------------------------ phase 9
+
+RESUME = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=(2, 3))
+RESUMED = re.compile(r"^resumed from outer step (\d+) digest (\w+) restore_s (\S+)$",
+                     re.M)
+SAVED = re.compile(r"^checkpoint (?:outer )?step (\d+) bytes (\d+) save_s (\S+)$", re.M)
+
+
+def check_trace(path: Path, sections: dict) -> None:
+    """A --trace-out file: one process_name event, then one complete event
+    per section entered, `sections` giving how often each was entered."""
+    events = json.loads(path.read_text())["traceEvents"]
+    meta = [e for e in events if e.get("ph") == "M" and e.get("name") == "process_name"]
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    if len(meta) != 1 or spans != sections or len(events) != 1 + sum(sections.values()):
+        raise SmokeError(f"trace {path.name}: {len(meta)} process_name events and "
+                         f"spans {spans}, expected 1 and {sections}")
+
+
+def phase_diloco_resume() -> dict:
+    """Two sync-DiLoCo peers at GPT-2 widths with checkpoints, stopped after
+    2 outer steps and resumed to 3 under a fresh master; returns the launch
+    totals and the checkpoint figures."""
+    r = RESUME
+    ck = LOG_DIR / "resume_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    totals = {name: 0 for name in FLASH}
+    texts = []
+    for run, outer_steps in enumerate(r["outer_steps"]):
+        peers = run_peer_pair(
+            [f"resume{run}_{rank}.log" for rank in range(2)],
+            "pccl_tpu_torch.examples.sync_diloco",
+            ["--model", r["model"], "--block", str(r["block"]),
+             "--batch", str(r["batch"]), "--inner-steps", str(r["inner_steps"]),
+             "--outer-steps", str(outer_steps), "--device", "cuda", "--attn", "flash",
+             "--data", "text", "--lr-schedule", "cosine", "--warmup-steps", "2",
+             "--checkpoint-every", "1", "--profile", "--no-descent-check"],
+            per_rank=lambda rank, run=run: [
+                "--checkpoint-dir", str(ck / f"peer{rank}"),
+                "--trace-out", str(LOG_DIR / f"resume{run}_{rank}.trace.json")])
+        for rank, (code, text) in enumerate(peers):
+            if code != 0 or "FINAL" not in text:
+                raise SmokeError(f"9: run {run} peer {rank} exited {code}")
+            rows = [m.groups() for m in LINE.finditer(text)]
+            first = r["outer_steps"][0] if run else 0
+            if [int(row[0]) for row in rows] != list(range(first, outer_steps)):
+                raise SmokeError(f"9: run {run} peer {rank} logged outer steps "
+                                 f"{[row[0] for row in rows]}")
+            for row in rows:
+                if not math.isfinite(float(row[1])) or int(row[2]) != 2:
+                    raise SmokeError(f"9: run {run} peer {rank}: {row}")
+                for name, n in zip(FLASH, row[6:9]):
+                    if int(n) <= 0:
+                        raise SmokeError(f"9: peer {rank}: {name} never launched")
+                    totals[name] += int(n)
+            table = {line.split()[0] for line in text.splitlines() if line.split()}
+            if not {"inner", "outer/ring+sgd"} <= table:
+                raise SmokeError(f"9: run {run} peer {rank}: no profile table")
+            steps = outer_steps - first
+            check_trace(LOG_DIR / f"resume{run}_{rank}.trace.json",
+                        {"inner": steps, "outer/ring+sgd": steps})
+        texts.append([text for _, text in peers])
+    first_digests = [[row[9] for row in (m.groups() for m in LINE.finditer(t))]
+                     for t in texts[0]]
+    resumed = [RESUMED.search(t) for t in texts[1]]
+    for rank, m in enumerate(resumed):
+        if m is None or int(m.group(1)) != r["outer_steps"][0]:
+            raise SmokeError(f"9: peer {rank} did not resume from outer step 2")
+        if m.group(2) != first_digests[rank][-1]:
+            raise SmokeError(f"9: peer {rank} restored digest {m.group(2)}, outer "
+                             f"step 1 printed {first_digests[rank][-1]}")
+    for run, pair in enumerate(texts):
+        rows = [[m.groups() for m in LINE.finditer(t)] for t in pair]
+        if [row[9] for row in rows[0]] != [row[9] for row in rows[1]]:
+            raise SmokeError(f"9: run {run}: digests differ across peers")
+    saves = [(int(b), float(s)) for t in texts[0] for _, b, s in SAVED.findall(t)]
+    restores = [float(m.group(3)) for m in resumed]
+    log(f"resume path (sync DiLoCo): both peers resumed from outer step 2 with "
+        f"the digest of outer step 1 ({resumed[0].group(2)}); digests equal at "
+        f"every step; checkpoint {saves[0][0]} bytes, save_s "
+        f"{' '.join(str(s) for _, s in saves)}, restore_s "
+        f"{' '.join(str(x) for x in restores)}; launches {totals}")
+    return {"launches": totals, "saves": saves, "restores": restores}
+
+
+# ------------------------------------------------------------------ phase 10
+
+DDP_RESUME = dict(model="gpt2", block=1024, batch=4, grad_accum=2, steps=(6, 9))
+EVAL = re.compile(r"^eval step (\d+) loss (\S+) launches (\d+)$", re.M)
+DDP_RESUMED = re.compile(r"^resumed from step (\d+) restore_s (\S+)$", re.M)
+
+
+def phase_ddp_resume() -> dict:
+    """Two DDP peers at GPT-2 widths with accumulation, eval and
+    checkpoints, stopped at step 6 and resumed to 9 under a fresh master;
+    returns the launch totals and the per-step rows."""
+    d = DDP_RESUME
+    ck = LOG_DIR / "ddp_resume_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    totals = {name: 0 for name, *_ in KERNELS}
+    texts, rows = [], []
+    for run, steps in enumerate(d["steps"]):
+        peers = run_peer_pair(
+            [f"ddp_resume{run}_{rank}.log" for rank in range(2)],
+            "pccl_tpu_torch.examples.train_ddp",
+            ["--model", d["model"], "--block", str(d["block"]),
+             "--batch", str(d["batch"]), "--grad-accum", str(d["grad_accum"]),
+             "--steps", str(steps), "--device", "cuda", "--attn", "flash",
+             "--data", "text", "--eval-every", "3", "--eval-batches", "2",
+             "--checkpoint-every", "6", "--no-descent-check"],
+            per_rank=lambda rank: ["--checkpoint-dir", str(ck / f"peer{rank}")],
+            env_extra={"PCCLT_SS_HASH": "simple-tpu"})
+        for rank, (code, text) in enumerate(peers):
+            if code != 0 or "FINAL" not in text:
+                raise SmokeError(f"10: run {run} peer {rank} exited {code}")
+        pair = [ddp_rows(text) for _, text in peers]
+        first = d["steps"][0] if run else 0
+        for rank, r in enumerate(pair):
+            if sorted(r) != list(range(first, steps)):
+                raise SmokeError(f"10: run {run} peer {rank} logged steps {sorted(r)}")
+            for row in r.values():
+                if row["world"] != 2 or not math.isfinite(row["loss"]):
+                    raise SmokeError(f"10: run {run} peer {rank}: {row}")
+                for name in totals:
+                    totals[name] += row[name]
+        for s in pair[0]:
+            if pair[0][s]["digest"] != pair[1][s]["digest"]:
+                raise SmokeError(f"10: run {run} step {s}: digests differ")
+        texts.append([text for _, text in peers])
+        rows.append(pair)
+    for rank, text in enumerate(texts[1]):
+        m = DDP_RESUMED.search(text)
+        if m is None or int(m.group(1)) != d["steps"][0]:
+            raise SmokeError(f"10: peer {rank} did not resume from step 6")
+        probe = rows[1][rank][d["steps"][0]]
+        if probe["revision"] != 0 or (probe["tx"], probe["rx"]) != (0, 0):
+            raise SmokeError(f"10: peer {rank}'s first sync after the resume: "
+                             f"revision {probe['revision']}, tx/rx {probe['tx']}/"
+                             f"{probe['rx']} (expected a 0-byte probe at 0)")
+    evals = [EVAL.findall(t) for pair in texts for t in pair]
+    if not all(evals):
+        raise SmokeError("10: a peer printed no eval line")
+    for e in evals:
+        totals["flash_fwd"] += sum(int(x[2]) for x in e)
+    finals = {re.search(r"params_blake2b=(\w+)", t).group(1) for t in texts[1]}
+    if len(finals) != 1:
+        raise SmokeError(f"10: final parameters differ: {sorted(finals)}")
+    peaks = [re.search(r"peak_alloc_mib=(\d+)", t).group(1) for pair in texts
+             for t in pair]
+    saves = [(int(b), float(s)) for t in texts[0] for _, b, s in SAVED.findall(t)]
+    restores = [float(DDP_RESUMED.search(t).group(2)) for t in texts[1]]
+    tokens = d["grad_accum"] * d["batch"] * d["block"]
+    for run, pair in enumerate(rows):
+        for rank, r in enumerate(pair):
+            cols = {k: " ".join(str(row[k]) for row in r.values())
+                    for k in ("tok_s", "ring_s", "sync_s")}
+            log(f"  10 run {run} peer {rank}: tok_s ({tokens} tokens a step) "
+                f"{cols['tok_s']}; ring_s {cols['ring_s']}; sync_s {cols['sync_s']}")
+    log(f"DDP resume path: both peers resumed from step 6 through a 0-byte "
+        f"revision-0 probe (sync_s {rows[1][0][6]['sync_s']:.3f}/"
+        f"{rows[1][1][6]['sync_s']:.3f}); digests equal at every step; "
+        f"params_blake2b {finals.pop()}; eval lines {[len(e) for e in evals]}; "
+        f"peak allocated MiB {'/'.join(peaks)}; checkpoint {saves[0][0]} bytes, "
+        f"save_s {' '.join(str(s) for _, s in saves)}, restore_s "
+        f"{' '.join(str(x) for x in restores)}; launches {totals}")
+    return {"launches": totals, "rows": rows, "saves": saves, "restores": restores}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1057,6 +1384,15 @@ def main() -> int:
     fa.reset_launch_counts()
     async_path = timed("async", phase_async)
     timed("pipelined", phase_pipelined)
+    # phase 8 runs in this process: its counts start at 0 here
+    fa.reset_launch_counts()
+    remat = timed("remat", phase_remat)
+    fa.reset_launch_counts()
+    resume = timed("diloco resume", phase_diloco_resume)
+    fa.reset_launch_counts()
+    hashing.reset_launch_counts()
+    ddp_resume = timed("ddp resume", phase_ddp_resume)
+    paths = (main_path, ddp, async_path, remat, resume, ddp_resume)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -1065,8 +1401,7 @@ def main() -> int:
     for name, source, replaces, *_ in KERNELS:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": main_path["launches"].get(name, 0) + ddp["launches"][name]
-               + async_path["launches"].get(name, 0)}
+               "launches": sum(p["launches"].get(name, 0) for p in paths)}
         if name in FLASH:
             def at(r):
                 return {

@@ -10,9 +10,11 @@ CUDA. Subpackages:
 
 - `comm`: ctypes bindings of the native core (Communicator, MasterNode);
 - `ops`: the flash-attention kernels, their plain versions and the build;
-- `models`: the GPT family, with the JAX package's parameter layout;
-- `parallel`: the train step, the flat-vector codec, the ring retry policy
-  and sync DiLoCo;
+- `models`: the GPT and Llama families, with the JAX package's parameter
+  layout and its checkpointing (remat) modes;
+- `parallel`: the train step (with gradient accumulation), the flat-vector
+  codec, the ring retry policy and sync and async DiLoCo;
+- `utils`: the token pipeline, the section profiler and checkpoints;
 - `examples`: `python -m pccl_tpu_torch.examples.sync_diloco`.
 """
 

@@ -25,7 +25,9 @@ digest: BLAKE2b of the outer fp32 vector after the call, equal on every
 peer. The FINAL line adds the digest once finish() has landed the last
 reduce, on a card the peak of the device memory torch allocated
 (peak_alloc_mib), and the process's peak resident host memory
-(peak_rss_mib).
+(peak_rss_mib). --profile prints the host time of the sections `inner`,
+`outer/async` and `outer/finish`; --trace-out writes them as a Chrome
+trace.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--inner-lr", type=float, default=1e-3)
     common.add_lr_schedule_args(ap)
+    common.add_data_args(ap)
     ap.add_argument("--outer-lr", type=float, default=0.7)
     common.add_model_args(ap)
     args = ap.parse_args(argv)
@@ -59,7 +62,7 @@ def main(argv=None) -> int:
 
     dev, attn_fn = common.device_and_attention(ap, args)
 
-    cfg = common.model_config(args)
+    cfg = common.model_config(args, char_level=args.data == "text")
     comm = common.connect(args)
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.inner_lr,
@@ -72,7 +75,8 @@ def main(argv=None) -> int:
                      DilocoConfig(inner_steps=args.inner_steps,
                                   outer_lr=args.outer_lr, outer_momentum=0.0,
                                   quantization=common.quant_from_arg(args.quantize)))
-    rng = common.data_rng(args)
+    next_batch = common.make_batch_fn(args, cfg.vocab_size)
+    prof = common.make_profiler(args)
 
     def sync():
         if dev.type == "cuda":
@@ -81,23 +85,24 @@ def main(argv=None) -> int:
     first_loss = last_loss = None
     for outer in range(args.outer_steps):
         common.admit_pending(comm)
-        batches = [common.synth_batch(rng, args.batch, args.block, cfg.vocab_size)
-                   for _ in range(args.inner_steps)]
+        batches = [next_batch() for _ in range(args.inner_steps)]
         fa.reset_launch_counts()
         sync()
         t0 = time.perf_counter()
-        for tok, tgt in batches:
-            tok = torch.from_numpy(tok).to(dev, non_blocking=True)
-            tgt = torch.from_numpy(tgt).to(dev, non_blocking=True)
-            loss = step_fn(state, tok, tgt)
-        loss = float(loss)                 # waits for the last inner step
+        with prof.section("inner"):
+            for tok, tgt in batches:
+                tok = torch.from_numpy(tok).to(dev, non_blocking=True)
+                tgt = torch.from_numpy(tgt).to(dev, non_blocking=True)
+                loss = step_fn(state, tok, tgt)
+            loss = float(loss)             # waits for the last inner step
         t_inner = time.perf_counter() - t0
         counts = dict(fa.launches)
         t0 = time.perf_counter()
         # joins the previous reduce, launches this one on a background
         # thread, and writes the params to continue from into state.params
-        dl.outer_step_async(state.params)
-        sync()
+        with prof.section("outer/async"):
+            dl.outer_step_async(state.params)
+            sync()
         t_outer = time.perf_counter() - t0
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
@@ -107,7 +112,10 @@ def main(argv=None) -> int:
               f"tok_s {tok_s:.1f} outer_s {t_outer:.3f} join_s {dl.join_s:.3f} "
               f"launches {counts['flash_fwd']} {counts['flash_bwd_dq']} "
               f"{counts['flash_bwd_dkv']} digest {dl.digest()}", flush=True)
-    dl.finish(state.params)                # land the last in-flight reduce
+    with prof.section("outer/finish"):
+        dl.finish(state.params)            # land the last in-flight reduce
+        sync()
+    common.finish_profile(args, prof)
 
     extra = f" revision={dl.step} digest={dl.digest()}"
     if dev.type == "cuda":

@@ -13,6 +13,17 @@ Each outer step prints one line:
 with the inner steps' tokens per second, the outer step's seconds, the
 launches of the three flash kernels during the outer step's inner steps,
 and a digest of the outer fp32 vector (equal on every peer).
+
+With --checkpoint-dir the outer state (utils/checkpoint.DilocoCheckpoint)
+is saved every --checkpoint-every outer steps, each save logged as
+    checkpoint outer step N bytes B save_s S
+and a restarted peer resumes from the newest snapshot, as the JAX example
+does: the inner steps continue from the restored outer parameters, the
+inner AdamW starts afresh with its schedule shifted by the steps already
+run, and the data stream is drained past the batches they used. It prints
+    resumed from outer step N digest D restore_s S
+where D is the restored outer vector's digest, equal to the one outer step
+N - 1 printed.
 """
 
 from __future__ import annotations
@@ -32,10 +43,17 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--inner-lr", type=float, default=1e-3)
+    common.add_lr_schedule_args(ap)
+    common.add_data_args(ap)
     ap.add_argument("--outer-lr", type=float, default=0.7)
     ap.add_argument("--shm-staging", action="store_true",
                     help="stage pseudo-gradients in a registered shm buffer "
                          "(zero-copy ring when peers share this host)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the outer state here every --checkpoint-every "
+                         "outer steps and resume from the newest snapshot")
+    ap.add_argument("--checkpoint-every", default=10,
+                    type=lambda v: max(1, int(v)))
     common.add_model_args(ap)
     args = ap.parse_args(argv)
 
@@ -47,38 +65,71 @@ def main(argv=None) -> int:
 
     dev, attn_fn = common.device_and_attention(ap, args)
 
-    cfg = common.model_config(args)
+    cfg = common.model_config(args, char_level=args.data == "text")
     comm = common.connect(args)
-    state = train_lib.make_train_state(args.seed, cfg, dev, lr=args.inner_lr)
+    total_steps = args.outer_steps * args.inner_steps
+    state = train_lib.make_train_state(
+        args.seed, cfg, dev, lr=args.inner_lr,
+        schedule=common.make_schedule(args, args.inner_lr, total_steps))
     step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn)
     dl = Diloco(comm, state.params,
                 DilocoConfig(inner_steps=args.inner_steps, outer_lr=args.outer_lr,
                              quantization=common.quant_from_arg(args.quantize),
                              shm_staging=args.shm_staging))
-    rng = common.data_rng(args)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    ckpt, start = None, 0
+    if args.checkpoint_dir:
+        from pccl_tpu_torch.utils.checkpoint import DilocoCheckpoint
+
+        ckpt = DilocoCheckpoint(args.checkpoint_dir)
+        t0 = time.perf_counter()
+        start = ckpt.maybe_restore(dl)
+        sync()
+        restore_s = time.perf_counter() - t0
+        if start:
+            # the inner steps continue from the restored outer parameters:
+            # from the seed's, the first pseudo-gradient would be a jump
+            # from the snapshot back toward the seed
+            dl.copy_outer_into(state.params)
+            # DiLoCo shares only the outer state, so the inner AdamW starts
+            # afresh; its schedule is shifted so that the decay goes on
+            # where the run left off instead of warming up again
+            state = train_lib.make_train_state(
+                args.seed, cfg, dev, lr=args.inner_lr, params=state.params,
+                schedule=common.make_schedule(args, args.inner_lr, total_steps,
+                                              offset=start * args.inner_steps))
+            print(f"resumed from outer step {start} digest {dl.digest()} "
+                  f"restore_s {restore_s:.3f}", flush=True)
+
+    prof = common.make_profiler(args)
+    next_batch = common.make_batch_fn(args, cfg.vocab_size)
+    # past the batches outer steps [0, start) used, so that a resumed run
+    # does not train on them again
+    for _ in range(start * args.inner_steps):
+        next_batch()
     first_loss = last_loss = None
-    for outer in range(args.outer_steps):
+    for outer in range(start, args.outer_steps):
         common.admit_pending(comm)
-        batches = [common.synth_batch(rng, args.batch, args.block, cfg.vocab_size)
-                   for _ in range(args.inner_steps)]
+        batches = [next_batch() for _ in range(args.inner_steps)]
         fa.reset_launch_counts()
         sync()
         t0 = time.perf_counter()
-        for tok, tgt in batches:
-            tok = torch.from_numpy(tok).to(dev, non_blocking=True)
-            tgt = torch.from_numpy(tgt).to(dev, non_blocking=True)
-            loss = step_fn(state, tok, tgt)
-        loss = float(loss)                 # waits for the last inner step
+        with prof.section("inner"):
+            for tok, tgt in batches:
+                tok = torch.from_numpy(tok).to(dev, non_blocking=True)
+                tgt = torch.from_numpy(tgt).to(dev, non_blocking=True)
+                loss = step_fn(state, tok, tgt)
+            loss = float(loss)             # waits for the last inner step
         t_inner = time.perf_counter() - t0
         counts = dict(fa.launches)
         t0 = time.perf_counter()
-        dl.outer_step(state.params)
-        sync()
+        with prof.section("outer/ring+sgd"):
+            dl.outer_step(state.params)
+            sync()
         t_outer = time.perf_counter() - t0
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
@@ -88,7 +139,13 @@ def main(argv=None) -> int:
               f"tok_s {tok_s:.1f} outer_s {t_outer:.3f} launches "
               f"{counts['flash_fwd']} {counts['flash_bwd_dq']} "
               f"{counts['flash_bwd_dkv']} digest {dl.digest()}", flush=True)
+        if ckpt is not None and (outer + 1) % args.checkpoint_every == 0:
+            t0 = time.perf_counter()
+            path = ckpt.save(dl)
+            print(f"checkpoint outer step {dl.step} bytes {path.stat().st_size} "
+                  f"save_s {time.perf_counter() - t0:.3f}", flush=True)
 
+    common.finish_profile(args, prof)
     return common.report_final(first_loss, last_loss, comm,
                                require_descent=not args.no_descent_check)
 

@@ -29,15 +29,32 @@ several peers share the host).
 Each step prints one line:
     step N loss L world W revision R tok_s X ring_s Y sync_s Z tx A rx B
     launches a b c h digest D
-tok_s: the step's tokens over its seconds (host clock from the step's
-start, sync included, to the end of the update on the device); ring_s: the
-gradient all-reduce (device to host, ring, host to device); sync_s: the
-shared-state sync; tx, rx: the sync's bytes; launches: the flash kernels
-K1, K2, K3 and H1 in this step; digest: H1 over the parameters after the
-update, equal on every peer. The FINAL line adds params_blake2b, BLAKE2b of
-the flat fp32 parameters at the end, taken independently of H1, on a card
-the peak of the device memory torch allocated (peak_alloc_mib), and the
-process's peak resident host memory (peak_rss_mib).
+tok_s: the step's tokens (A·B·T with --grad-accum A) over its seconds
+(host clock from the step's start, sync included, to the end of the update
+on the device); ring_s: the gradient all-reduce (device to host, ring,
+host to device); sync_s: the shared-state sync; tx, rx: the sync's bytes;
+launches: the flash kernels K1, K2, K3 and H1 in this step; digest: H1 over
+the parameters after the update, equal on every peer. The FINAL line adds
+params_blake2b, BLAKE2b of the flat fp32 parameters at the end, taken
+independently of H1, on a card the peak of the device memory torch
+allocated (peak_alloc_mib), and the process's peak resident host memory
+(peak_rss_mib).
+
+--grad-accum A: each step takes A microbatches of B sequences, one
+microbatch's activations live at a time (parallel/train.py
+accum_value_and_grad), and the ring still moves one averaged gradient.
+--eval-every N: every N steps, the mean loss without gradients over
+--eval-batches batches of the held-out split, printed as
+    eval step N loss L launches a
+(a: K1's launches). --checkpoint-dir: every --checkpoint-every steps the
+parameters and AdamW's state (in optax's leaf order) are saved
+(utils/checkpoint.Checkpointer), logged as
+    checkpoint step N bytes B save_s S
+and a restarted peer resumes from the newest, drains its data stream past
+the batches already used and prints
+    resumed from step N restore_s S
+Its first sync is a probe at revision 0 when the world has other peers
+(see sync_state).
 """
 
 from __future__ import annotations
@@ -96,6 +113,16 @@ def adopt(state, entries) -> None:
         state, [e.torch_value() for e in entries[n:-1]])
 
 
+def checkpoint_tree(state) -> dict:
+    """What a checkpoint holds: the parameters by name and AdamW's state in
+    optax's leaf order (parallel/train.opt_state_leaves), the JAX
+    example's {params, opt_state}."""
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    return {"params": dict(state.params),
+            "opt_state": train_lib.opt_state_leaves(state)}
+
+
 def params_digest(params) -> str:
     """H1 over each parameter, sorted by name, folded into 16 hex digits."""
     from pccl_tpu_torch.ops.hashing import torch_simplehash_device
@@ -121,9 +148,25 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches a step; the ring still moves one "
+                         "averaged gradient a step")
     common.add_lr_schedule_args(ap)
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="every N steps, the mean held-out loss over "
+                         "--eval-batches batches")
+    ap.add_argument("--eval-batches", type=int, default=4)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the parameters and AdamW's state here every "
+                         "--checkpoint-every steps and resume from the "
+                         "newest snapshot")
+    ap.add_argument("--checkpoint-every", default=20,
+                    type=lambda v: max(1, int(v)))
+    common.add_data_args(ap)
     common.add_model_args(ap)
     args = ap.parse_args(argv)
+    if args.grad_accum < 1:
+        ap.error("--grad-accum must be at least 1")
 
     import numpy as np
     import torch
@@ -142,47 +185,111 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(str(e))
 
-    cfg = common.model_config(args)
+    cfg = common.model_config(args, char_level=args.data == "text")
     comm = common.connect(args)
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.lr,
         schedule=common.make_schedule(args, args.lr, args.steps))
-    loss_and_grad = train_lib.build_loss_and_grad(cfg, attn_fn=attn_fn)
+    accum = args.grad_accum
+    loss_and_grad = train_lib.build_loss_and_grad(cfg, attn_fn=attn_fn,
+                                                  accum_steps=accum)
 
     def make_ring(comm):
         return HierarchicalAllReduce(
             comm, state.params, quantization=common.quant_from_arg(args.quantize))
 
     ring = make_ring(comm)
-    rng = common.data_rng(args)
-
-    def batches():
-        while True:
-            yield common.synth_batch(rng, args.batch, args.block, cfg.vocab_size)
-
-    feed = prefetch_to_device(batches(), size=2, device=dev)
+    prof = common.make_profiler(args)
+    next_batch = common.make_batch_fn(args, cfg.vocab_size)
 
     def sync_device():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    ckpt, start = None, 0
+    if args.checkpoint_dir:
+        from pccl_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(args.checkpoint_dir)
+        latest = ckpt.latest_step()
+        if latest is not None:
+            t0 = time.perf_counter()
+            # loaded to the host and copied into the live tensors, so the
+            # card never holds a second copy of the state
+            tree = ckpt.load(checkpoint_tree(state), latest)
+            with torch.no_grad():
+                for name, p in state.params.items():
+                    p.copy_(tree["params"][name])
+            train_lib.load_opt_state_leaves(state, tree["opt_state"])
+            sync_device()
+            start = latest
+            # past the batches steps [0, start) used, before the prefetcher
+            # starts drawing, so that a resumed run does not train on them
+            # again
+            for _ in range(start * accum):
+                next_batch()
+            print(f"resumed from step {latest} restore_s "
+                  f"{time.perf_counter() - t0:.3f}", flush=True)
+
+    def batches():
+        while True:
+            if accum > 1:
+                ms = [next_batch() for _ in range(accum)]
+                yield np.stack([m[0] for m in ms]), np.stack([m[1] for m in ms])
+            else:
+                yield next_batch()
+
+    feed = prefetch_to_device(batches(), size=2, device=dev)
+
+    model = train_lib.family(cfg)
+    eval_batch = common.make_batch_fn(args, cfg.vocab_size, split="val") \
+        if args.eval_every > 0 else None
+
+    def evaluate(step):
+        fa.reset_launch_counts()
+        vals = []
+        with torch.no_grad(), prof.section("eval"):
+            for _ in range(args.eval_batches):
+                et, ey = (torch.from_numpy(x).to(dev) for x in eval_batch())
+                vals.append(float(model.loss_fn(state.params, et, ey, cfg,
+                                                attn_fn)))
+        print(f"eval step {step} loss {np.mean(vals):.4f} launches "
+              f"{fa.launches['flash_fwd']}", flush=True)
+
     # --- per-step shared-state sync ---
     # The DDP invariant is identical parameters and optimizer state on every
-    # peer; a late joiner starts from seed parameters, so it must adopt the
-    # cohort's. The revision offered is the master's one-increment counter,
-    # not the step: after the first sync every peer offers the agreed
-    # revision + 1, and the step rides in `ddp.step`. A fresh peer offers
-    # revision 0 first, which never trips the master's `revision > last+1`
-    # kick; against a cohort that is ahead, 0 marks it outdated and it
-    # adopts parameters, optimizer state and step.
+    # peer; a late joiner starts from seed parameters and a resumed peer
+    # from its checkpoint, so either may have to adopt the cohort's. The
+    # revision offered is the master's one-increment counter, not the step:
+    # after the first sync every peer offers the agreed revision + 1, and
+    # the step rides in `ddp.step`. The first offer depends on how the peer
+    # came up:
+    # - fresh: the step, 0. A late joiner's 0 never trips the master's
+    #   `revision > last+1` kick; against a cohort that is ahead, 0 marks it
+    #   outdated and it adopts parameters, optimizer state and step;
+    # - resumed, with other peers in the world: a probe at revision 0.
+    #   Offering the checkpoint's step to an initialised cohort would be
+    #   revision last+2 or more, and the master kicks for that. Revision 0
+    #   cannot be kicked and never wins an election against incumbents at
+    #   their revision, so against a live cohort the peer adopts its state;
+    #   in a restart of the whole cohort, every peer probing at 0, the
+    #   election settles them on one checkpoint's content. It is declared
+    #   enforce-popular, since the master kicks a receive-only request
+    #   mixed with enforce-popular incumbents;
+    # - resumed alone (world 1): the checkpoint's step; a fresh master
+    #   takes any first revision.
     next_revision = None
+    probe = start > 0
 
     def sync_state(comm, step):
-        nonlocal next_revision
+        nonlocal next_revision, probe
         step_arr = np.array([step], dtype=np.uint64)
         entries = state_entries(state, step_arr, make)
-        st = SharedState(entries, revision=step if next_revision is None
-                         else next_revision)
+        if probe and comm.world_size >= 2:
+            revision = 0
+        else:
+            revision = step if next_revision is None else next_revision
+        st = SharedState(entries, revision=revision)
         # churn mid-election: retry at the same revision until the
         # survivors elect; training through a failed sync would raise the
         # offer by more than one. A kick is terminal for the communicator.
@@ -203,6 +310,7 @@ def main(argv=None) -> int:
                 except PcclError:
                     pass
         next_revision = info.revision + 1
+        probe = False
         if info.rx_bytes:  # outdated: adopt the cohort's state
             adopt(state, entries)
             step = int(step_arr[0])
@@ -210,7 +318,7 @@ def main(argv=None) -> int:
         return step, info
 
     first_loss = last_loss = None
-    step = 0
+    step = start
     while step < args.steps:
         fa.reset_launch_counts()
         hashing.reset_launch_counts()
@@ -220,7 +328,8 @@ def main(argv=None) -> int:
         sync_s = 0.0
         if comm is not None:
             try:
-                step, info = sync_state(comm, step)
+                with prof.section("sync_state"):
+                    step, info = sync_state(comm, step)
             except KickedError:
                 # a kick ends the communicator: reconnect and offer revision
                 # 0, which cannot be kicked, so the election converges this
@@ -233,23 +342,26 @@ def main(argv=None) -> int:
                     pass
                 comm = common.connect(args)
                 ring = make_ring(comm)
-                next_revision = 0
+                next_revision, probe = 0, False
                 continue
             sync_s = time.perf_counter() - t_start
             tx, rx, revision = info.tx_bytes, info.rx_bytes, info.revision
             if step >= args.steps:
                 break
         tok, tgt = next(feed)
-        loss = loss_and_grad(state, tok, tgt)
-        sync_device()
+        with prof.section("fwd+bwd"):
+            loss = loss_and_grad(state, tok, tgt)
+            sync_device()
         t0 = time.perf_counter()
-        ring.all_reduce({n: p.grad for n, p in state.params.items()})
-        sync_device()
+        with prof.section("ring/all_reduce"):
+            ring.all_reduce({n: p.grad for n, p in state.params.items()})
+            sync_device()
         ring_s = time.perf_counter() - t0
-        train_lib.apply(state)
-        loss = float(loss)
-        sync_device()
-        tok_s = args.batch * args.block / (time.perf_counter() - t_start)
+        with prof.section("apply"):
+            train_lib.apply(state)
+            loss = float(loss)
+            sync_device()
+        tok_s = accum * args.batch * args.block / (time.perf_counter() - t_start)
         digest = params_digest(state.params)
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
@@ -259,9 +371,17 @@ def main(argv=None) -> int:
               f"tx {tx} rx {rx} launches {fa.launches['flash_fwd']} "
               f"{fa.launches['flash_bwd_dq']} {fa.launches['flash_bwd_dkv']} "
               f"{hashing.launches['simplehash_tpu']} digest {digest}", flush=True)
+        if eval_batch is not None and (step + 1) % args.eval_every == 0:
+            evaluate(step)
+        if ckpt is not None and (step + 1) % args.checkpoint_every == 0:
+            t0 = time.perf_counter()
+            path = ckpt.save(step + 1, checkpoint_tree(state))
+            print(f"checkpoint step {step + 1} bytes {path.stat().st_size} "
+                  f"save_s {time.perf_counter() - t0:.3f}", flush=True)
         step += 1
 
     feed.close()
+    common.finish_profile(args, prof)
     extra = f" params_blake2b={params_blake2b(state.params)}"
     if dev.type == "cuda":
         extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"

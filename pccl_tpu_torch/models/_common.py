@@ -3,25 +3,74 @@ the fp32-output head product and the cross-entropy losses."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of products without a batch
+    dimension (aten.mm: every `[..., d] @ W`, flattened to 2-D, and
+    _MatmulF32Out's fp32-output mm) and recompute the rest, the batched
+    attention products and the flash kernel included. JAX's
+    checkpoint_dots_with_no_batch_dims."""
+    return CheckpointPolicy.MUST_SAVE \
+        if getattr(op, "overloadpacket", None) is torch.ops.aten.mm \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _save_weight_products)
+
+
+def _sqrt_divisor(n: int) -> int:
+    """Largest divisor of n that is <= sqrt(n) (1 for primes)."""
+    g = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            g = d
+        d += 1
+    return g
 
 
 def run_blocks(block_fn, x: torch.Tensor, n_layer: int, remat) -> torch.Tensor:
     """x -> block_fn(..., l) for l in range(n_layer): the JAX package's
     lax.scan over stacked layer tensors, as a Python loop over the layer
-    index. remat=True checkpoints each block (the backward recomputes its
-    forward); "dots" and "sqrt" are not ported yet."""
-    if remat in ("dots", "sqrt"):
-        raise NotImplementedError(f"remat={remat!r} is not ported yet; use "
-                                  "False or True")
-    if remat not in (False, True, None):
-        raise ValueError(f"unknown remat mode {remat!r}; use False or True")
-    for layer in range(n_layer):
-        if remat:
-            x = checkpoint(block_fn, x, layer, use_reentrant=False)
-        else:
+    index, with its checkpointing (pccl_tpu/models/_common.py:scan_blocks).
+
+    remat: False keeps every activation; True checkpoints each block (the
+    backward recomputes its forward); "dots" checkpoints each block but
+    keeps its weight products (_save_weight_products); "sqrt" checkpoints
+    groups of G blocks, G the largest divisor of n_layer <= sqrt(n_layer),
+    and each block inside a group as well, so the backward holds
+    n_layer/G group inputs and, while one group is recomputed, G block
+    inputs. A prime n_layer (G = 1) falls back to True."""
+    if remat not in (False, True, None, "dots", "sqrt"):
+        raise ValueError(f"unknown remat mode {remat!r}; use False, True, "
+                         "'dots', or 'sqrt'")
+    if not remat:
+        for layer in range(n_layer):
             x = block_fn(x, layer)
+        return x
+    if remat == "sqrt":
+        G = _sqrt_divisor(n_layer)
+        if G == 1:
+            return run_blocks(block_fn, x, n_layer, True)
+
+        def group(h, first):
+            for layer in range(first, first + G):
+                h = checkpoint(block_fn, h, layer, use_reentrant=False)
+            return h
+
+        for first in range(0, n_layer, G):
+            x = checkpoint(group, x, first, use_reentrant=False)
+        return x
+    kw = {"context_fn": _DOTS_CONTEXT} if remat == "dots" else {}
+    for layer in range(n_layer):
+        x = checkpoint(block_fn, x, layer, use_reentrant=False, **kw)
     return x
 
 

@@ -6,16 +6,20 @@
   source, all started together. No PyTorch headers are compiled, so a
   build takes seconds, not minutes.
 - `build_pcclt()`: the C++ core `libpcclt.so` from `pccl_tpu/native/src`,
-  the library only (no test binaries), one g++ per source in parallel.
+  the library only (no test binaries), one g++ per source in parallel;
+  `ensure_pcclt()` does the same under an exclusive lock, so that
+  concurrent processes (test workers) build it once between them.
 
 Both write into `pccl_tpu_torch/build/` and skip sources whose output is
-newer than every input. Outputs land under a temporary name and are renamed
-into place, so concurrent first users never load a half-written file.
+newer than every input (`force=True` rebuilds all). Outputs land under a
+temporary name and are renamed into place, so concurrent first users never
+load a half-written file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -117,9 +121,10 @@ def kernel_lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_pcclt() -> Path:
+def build_pcclt(force: bool = False) -> Path:
     """Build libpcclt.so from pccl_tpu/native/src into build/; returns its
-    path."""
+    path. force: rebuild every object and the library, whatever their
+    times (a library that came with a copied tree was built elsewhere)."""
     if not (NATIVE / "src").is_dir():
         raise BuildError(f"native sources not found under {NATIVE}")
     obj_dir = BUILD_DIR / "pcclt_obj"
@@ -132,13 +137,26 @@ def build_pcclt() -> Path:
     for src in srcs:
         obj = obj_dir / f"{src.stem}.o"
         objs.append(obj)
-        if _stale(obj, [src, *headers]):
+        if force or _stale(obj, [src, *headers]):
             tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
             jobs.append((["g++", *GXX_FLAGS, *PCCLT_ARCH.get(src.stem, []),
                           "-c", str(src), "-o", str(tmp)], NATIVE, tmp, obj))
     _run_all(jobs, "g++ (libpcclt objects)")
-    if _stale(out, objs):
+    if force or _stale(out, objs):
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         _run_all([(["g++", "-shared", *GXX_FLAGS, "-o", str(tmp),
                     *map(str, objs)], NATIVE, tmp, out)], "g++ (link libpcclt)")
     return out
+
+
+def ensure_pcclt() -> Path:
+    """build_pcclt() under an exclusive flock on build/libpcclt.lock:
+    the first caller builds (about two minutes of CPU), the others wait for
+    it and then find the library fresh. Returns the library's path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "libpcclt.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return build_pcclt()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)

@@ -83,20 +83,58 @@ def make_train_state(seed: int, cfg, device="cuda",
     return TrainState(params, opt, sched)
 
 
+def accum_value_and_grad(base_lg, accum_steps: int):
+    """Wrap base_lg(state, tokens, targets) -> loss, which adds the
+    gradients of one batch into the parameters' `.grad`, with microbatch
+    accumulation (pccl_tpu/parallel/train.py:accum_value_and_grad): the
+    wrapped function takes tokens and targets [A, B, T] and runs one
+    microbatch at a time, so one microbatch's activations are live at a
+    time. Each backward adds its gradients unscaled into the fp32 `.grad`;
+    at the end they are divided by A once, and the loss is the sum of the
+    microbatch losses in fp32 over A: JAX's order (sum in fp32, then
+    divide). A leading axis other than A raises."""
+
+    def fn(state: TrainState, tokens, targets):
+        a = tokens.shape[0] if tokens.dim() == 3 else None
+        if a != accum_steps or tuple(targets.shape) != tuple(tokens.shape):
+            raise ValueError(f"got {a} microbatches, step was built for "
+                             f"accum_steps={accum_steps} (tokens and targets "
+                             f"[A, B, T]; got {tuple(tokens.shape)} and "
+                             f"{tuple(targets.shape)})")
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_sum = None
+        for i in range(a):
+            loss = base_lg(state, tokens[i], targets[i])
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        with torch.no_grad():
+            for p in state.params.values():
+                if p.grad is not None:
+                    p.grad.div_(a)
+        return loss_sum / a
+
+    return fn
+
+
 def build_loss_and_grad(cfg, attn_fn=None, remat=False,
-                        loss_chunk: "int | None" = None):
+                        loss_chunk: "int | None" = None, accum_steps: int = 1):
     """Returns loss_and_grad(state, tokens, targets) -> loss (a detached
     0-d tensor, not synchronised), leaving the gradients in each
-    parameter's `.grad`. attn_fn, remat and loss_chunk as in
+    parameter's `.grad`. attn_fn, remat, loss_chunk and accum_steps as in
     build_train_step."""
     model = family(cfg)
 
-    def loss_and_grad(state: TrainState, tokens, targets):
-        state.optimizer.zero_grad(set_to_none=True)
+    def micro(state: TrainState, tokens, targets):
         loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn, remat,
                              loss_chunk)
         loss.backward()
         return loss.detach()
+
+    if accum_steps > 1:
+        return accum_value_and_grad(micro, accum_steps)
+
+    def loss_and_grad(state: TrainState, tokens, targets):
+        state.optimizer.zero_grad(set_to_none=True)
+        return micro(state, tokens, targets)
 
     return loss_and_grad
 
@@ -110,13 +148,17 @@ def apply(state: TrainState) -> None:
 
 
 def build_train_step(cfg, attn_fn=None, remat=False,
-                     loss_chunk: "int | None" = None):
+                     loss_chunk: "int | None" = None, accum_steps: int = 1):
     """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
     not synchronised): build_loss_and_grad, then apply. attn_fn: the
-    attention op (e.g. ops.flash_attention); remat: per-block
-    checkpointing; loss_chunk: the head and loss in checkpointed sequence
-    chunks."""
-    loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk)
+    attention op (e.g. ops.flash_attention); remat: checkpointing, False,
+    True, "dots" or "sqrt" (models/_common.py:run_blocks); loss_chunk: the
+    head and loss in checkpointed sequence chunks; accum_steps: with A > 1
+    the step takes tokens and targets [A, B, T] and accumulates the
+    gradients of the A microbatches (accum_value_and_grad) before one
+    update."""
+    loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk,
+                                        accum_steps)
 
     def step(state: TrainState, tokens, targets):
         loss = loss_and_grad(state, tokens, targets)

@@ -1,2 +1,3 @@
-"""Utilities of the port: the device prefetcher of the token pipeline
-(data.py)."""
+"""Utilities of the port: the token pipeline (data.py: TokenDataset and the
+device prefetcher), the section profiler (profiler.py) and checkpoints
+(checkpoint.py)."""

@@ -1,4 +1,8 @@
-"""Token data pipeline: a device prefetcher.
+"""Token data pipeline: random-crop batches and a device prefetcher.
+
+`TokenDataset` is the JAX package's (pccl_tpu/utils/data.py), copied: pure
+numpy, and the same (seed, worker_index) gives the same stream in both
+packages, so data-parallel peers of either sample disjointly.
 
 `prefetch_to_device` stages upcoming batches on the card from a background
 thread, so the host -> device copy of batch k+1 runs under the compute of
@@ -10,12 +14,43 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterable, Iterator
+from typing import Any, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+
+
+class TokenDataset:
+    """Random-crop next-token batches over a 1-D token array (in memory or
+    an np.memmap: nothing is copied until a crop is sampled). Each
+    (seed, worker_index) pair is its own deterministic stream; peers pass
+    their rank so that a data-parallel group samples disjointly."""
+
+    def __init__(self, tokens: np.ndarray, block_size: int, batch_size: int,
+                 *, seed: int = 0, worker_index: int = 0):
+        if tokens.ndim != 1:
+            raise ValueError(f"tokens must be 1-D, got shape {tokens.shape}")
+        if len(tokens) < block_size + 2:
+            raise ValueError(
+                f"need > block_size+1={block_size + 1} tokens, got {len(tokens)}")
+        self.tokens = tokens
+        self.block_size = block_size
+        self.batch_size = batch_size
+        self._rng = np.random.default_rng((seed << 20) ^ (worker_index + 1))
+
+    def sample(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(tokens, targets) int32 [B, T]: one random-crop batch."""
+        B, T = self.batch_size, self.block_size
+        starts = self._rng.integers(0, len(self.tokens) - T - 1, size=B)
+        x = np.stack([self.tokens[s:s + T] for s in starts])
+        y = np.stack([self.tokens[s + 1:s + T + 1] for s in starts])
+        return x.astype(np.int32), y.astype(np.int32)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        while True:
+            yield self.sample()
 
 
 def _map(item: Any, fn) -> Any:

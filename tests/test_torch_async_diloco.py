@@ -4,14 +4,16 @@ example.
 
 Without a ring (comm=None) both packages run on the CPU and the outer vector
 must be bit-equal: the port's apply is the JAX package's arithmetic as XLA
-compiles it there. The native tests need libpcclt.so and skip without it,
-as the JAX package's DiLoCo tests do.
+compiles it there. The native tests build libpcclt.so into
+pccl_tpu_torch/build/ once (under a lock) and skip only where g++ is
+missing.
 """
 
 import dataclasses
 import gc
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -24,8 +26,10 @@ import torch
 
 import jax.numpy as jnp
 
+from pccl_tpu.comm import _native as jax_native
 from pccl_tpu.parallel import diloco as jdiloco
 from pccl_tpu_torch.comm import _native
+from pccl_tpu_torch.ops import _build
 from pccl_tpu_torch.parallel import diloco
 
 REPO = Path(__file__).resolve().parent.parent
@@ -43,10 +47,11 @@ PROFILE_KEYS["unstaged"] = PROFILE_KEYS["staged"]
 
 
 def _lib():
-    path = _native.find_library()
-    if path is None:
-        pytest.skip("native lib not built")
-    return path
+    """libpcclt.so, built once into pccl_tpu_torch/build/ by the first
+    test that needs it (the others wait on its lock)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: libpcclt.so cannot be built")
+    return _build.ensure_pcclt()
 
 
 def _tree(seed=0, scale=1.0):
@@ -312,7 +317,11 @@ def test_torch_async_peer_and_jax_async_peer_share_a_ring(monkeypatch):
     the same arithmetic, so their outer vectors are bit-equal at every step
     and after finish()."""
     lib = _lib()
+    # the JAX peer loads the built library through PCCLT_LIB; its loader's
+    # cache is reset before and after, so no JAX test later in this
+    # process finds a library it did not find itself
     monkeypatch.setenv("PCCLT_LIB", str(lib))
+    monkeypatch.setattr(jax_native, "_LIB", None)
     from pccl_tpu.comm import Communicator as JComm
     from pccl_tpu_torch.comm import Communicator
 

@@ -9,13 +9,14 @@ parameters to 2e-5 for all but one in 10^4 of them (Adam moves a weight by
 about lr whatever its gradient, so one whose gradient is as small as the
 frameworks' rounding may step differently, by at most 2 lr).
 
-The native tests need libpcclt.so and skip without it, as the JAX
-package's shared-state tests do.
+The native tests build libpcclt.so into pccl_tpu_torch/build/ once (under
+a lock) and skip only where g++ is missing.
 """
 
 import functools
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -30,12 +31,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from pccl_tpu.comm import _native as jax_native
 from pccl_tpu.models import gpt as jgpt
 from pccl_tpu.parallel import mesh as mesh_lib
 from pccl_tpu.parallel import train as jtrain
-from pccl_tpu_torch.comm import _native
 from pccl_tpu_torch.examples import train_ddp
 from pccl_tpu_torch.models import convert, gpt
+from pccl_tpu_torch.ops import _build
 from pccl_tpu_torch.parallel import train
 from pccl_tpu_torch.parallel.hierarchical import HierarchicalAllReduce
 from pccl_tpu_torch.utils import data
@@ -49,10 +51,11 @@ PEER_BASE = 31500
 
 
 def _lib():
-    path = _native.find_library()
-    if path is None:
-        pytest.skip("native lib not built")
-    return path
+    """libpcclt.so, built once into pccl_tpu_torch/build/ by the first
+    test that needs it (the others wait on its lock)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: libpcclt.so cannot be built")
+    return _build.ensure_pcclt()
 
 
 def _mesh():
@@ -238,7 +241,11 @@ def test_torch_peer_adopts_a_jax_peers_device_hashed_state(monkeypatch):
     receives exactly the entries' bytes, its receipt checks H1's digests
     against the C++ hash, and the adopted tensors equal JAX's bit for bit."""
     lib = _lib()
+    # the JAX peer loads the built library through PCCLT_LIB; its loader's
+    # cache is reset before and after, so no JAX test later in this
+    # process finds a library it did not find itself
     monkeypatch.setenv("PCCLT_LIB", str(lib))
+    monkeypatch.setattr(jax_native, "_LIB", None)
     monkeypatch.setenv("PCCLT_SS_HASH", "simple-tpu")
     from pccl_tpu.comm import Communicator as JComm
     from pccl_tpu.comm import SharedState as JState

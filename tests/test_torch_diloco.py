@@ -1,12 +1,13 @@
 """pccl_tpu_torch.parallel (codec, sync DiLoCo) against pccl_tpu.parallel,
 and the port's peers over the native ring.
 
-The native tests need libpcclt.so and skip without it, as the JAX package's
-DiLoCo tests do.
+The native tests build libpcclt.so into pccl_tpu_torch/build/ once (under
+a lock) and skip only where g++ is missing.
 """
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -22,7 +23,8 @@ import jax.numpy as jnp
 
 from pccl_tpu.parallel import codec as jcodec
 from pccl_tpu.parallel import diloco as jdiloco
-from pccl_tpu_torch.comm import _native
+from pccl_tpu.comm import _native as jax_native
+from pccl_tpu_torch.ops import _build
 from pccl_tpu_torch.parallel import codec, diloco
 
 REPO = Path(__file__).resolve().parent.parent
@@ -33,10 +35,11 @@ PEER_BASE = {"threads": 30600, "mixed": 30700, "e2e": 30800}
 
 
 def _lib():
-    path = _native.find_library()
-    if path is None:
-        pytest.skip("native lib not built")
-    return path
+    """libpcclt.so, built once into pccl_tpu_torch/build/ by the first
+    test that needs it (the others wait on its lock)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: libpcclt.so cannot be built")
+    return _build.ensure_pcclt()
 
 
 def _tree(seed=0):
@@ -196,7 +199,11 @@ def test_torch_peer_and_jax_peer_share_a_ring(monkeypatch):
     pseudo-gradient is the same bytes on both, and one outer step leaves
     the same outer parameters to fp32 rounding."""
     lib = _lib()
+    # the JAX peer loads the built library through PCCLT_LIB; its loader's
+    # cache is reset before and after, so no JAX test later in this
+    # process finds a library it did not find itself
     monkeypatch.setenv("PCCLT_LIB", str(lib))
+    monkeypatch.setattr(jax_native, "_LIB", None)
     from pccl_tpu.comm import Communicator as JComm
     from pccl_tpu_torch.comm import Communicator, MasterNode
 

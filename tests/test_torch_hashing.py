@@ -7,10 +7,11 @@ takes) + the host finalize, the port's numpy twin, and the JAX package's
 jax_simplehash_device on the JAX CPU backend (its numpy twin for uint64,
 which JAX hashes on the host).
 
-The sync tests need libpcclt.so and skip without it, as the JAX package's
-shared-state tests do.
+The sync tests build libpcclt.so into pccl_tpu_torch/build/ once (under a
+lock) and skip only where g++ is missing.
 """
 
+import shutil
 import threading
 import time
 
@@ -22,8 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from pccl_tpu.ops import hashing as jhashing
-from pccl_tpu_torch.comm import _native
-from pccl_tpu_torch.ops import hashing
+from pccl_tpu_torch.ops import _build, hashing
 
 # master ports of this file: below the kernel's ephemeral range, away from
 # the ranges the other test files use; peers take ephemeral ports
@@ -156,10 +156,11 @@ def test_from_torch_shares_a_cpu_tensors_storage():
 # ------------------------------------------------------------ over the core
 
 def _lib():
-    path = _native.find_library()
-    if path is None:
-        pytest.skip("native lib not built")
-    return path
+    """libpcclt.so, built once into pccl_tpu_torch/build/ by the first
+    test that needs it (the others wait on its lock)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found: libpcclt.so cannot be built")
+    return _build.ensure_pcclt()
 
 
 def _run_peers(master_port, world, worker, timeout=120):

@@ -94,14 +94,6 @@ def test_loss_chunk_must_divide():
                     loss_chunk=24)
 
 
-@pytest.mark.parametrize("mode", ["dots", "sqrt"])
-def test_unported_remat_modes_raise(mode):
-    _, tcfg, _, tp, tok, tgt = _setup()
-    with pytest.raises(NotImplementedError):
-        gpt.loss_fn(tp, torch.from_numpy(tok), torch.from_numpy(tgt), tcfg,
-                    remat=mode)
-
-
 def test_untied_head_matches_jax():
     jcfg, tcfg, jp, tp, tok, _ = _setup(seed=3, untie_head=True)
     _close(gpt.forward(tp, torch.from_numpy(tok), tcfg).detach().numpy(),
