@@ -26,5 +26,11 @@ from .api import (  # noqa: F401
     SharedStateSyncStrategy,
     TensorInfo,
     TooFewPeersError,
+    build_info,
+    netem_inject,
     shm_ndarray,
+    trace_clear,
+    trace_dump,
+    trace_enable,
+    trace_events,
 )

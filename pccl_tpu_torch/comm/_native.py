@@ -124,6 +124,83 @@ class SharedStateSyncInfo(ctypes.Structure):
     ]
 
 
+class CommStats(ctypes.Structure):
+    """Counters of one communicator (Communicator.stats()["counters"]),
+    monotonic since connect; the trace-ring fields are process-global."""
+    _fields_ = [
+        ("collectives_ok", ctypes.c_uint64),
+        ("collectives_aborted", ctypes.c_uint64),
+        ("collectives_connection_lost", ctypes.c_uint64),
+        ("topology_updates", ctypes.c_uint64),
+        ("topology_optimizes", ctypes.c_uint64),
+        ("syncs_ok", ctypes.c_uint64),
+        ("syncs_failed", ctypes.c_uint64),
+        ("sync_hash_mismatches", ctypes.c_uint64),
+        ("kicked", ctypes.c_uint64),
+        ("peers_joined", ctypes.c_uint64),
+        ("peers_left", ctypes.c_uint64),
+        ("master_reconnects", ctypes.c_uint64),
+        ("p2p_conns_reused", ctypes.c_uint64),
+        ("telemetry_digests", ctypes.c_uint64),
+        ("trace_ring_dropped", ctypes.c_uint64),
+        ("relay_forwarded", ctypes.c_uint64),
+        ("chaos_faults_armed", ctypes.c_uint64),
+        ("chaos_faults_activated", ctypes.c_uint64),
+        ("trace_ring_pushed", ctypes.c_uint64),
+        ("trace_ring_capacity", ctypes.c_uint64),
+        ("ss_chunks_fetched", ctypes.c_uint64),
+        ("ss_chunks_resourced", ctypes.c_uint64),
+        ("ss_chunks_dup", ctypes.c_uint64),
+        ("ss_chunk_bytes_fetched", ctypes.c_uint64),
+        ("ss_chunk_bytes_resourced", ctypes.c_uint64),
+        ("ss_chunk_bytes_dup", ctypes.c_uint64),
+        ("ss_seeder_chunks_served", ctypes.c_uint64),
+        ("ss_seeder_promotions", ctypes.c_uint64),
+        ("ss_seeders_lost", ctypes.c_uint64),
+        ("ss_legacy_syncs", ctypes.c_uint64),
+        ("relay_acks", ctypes.c_uint64),
+        ("relay_retired_early", ctypes.c_uint64),
+        ("sched_ops_ring", ctypes.c_uint64),
+        ("sched_ops_tree", ctypes.c_uint64),
+        ("sched_ops_butterfly", ctypes.c_uint64),
+        ("sched_ops_mesh", ctypes.c_uint64),
+        ("sched_ops_relay", ctypes.c_uint64),
+        ("sched_steps", ctypes.c_uint64),
+        ("sched_relay_planned_bytes", ctypes.c_uint64),
+        ("ss_chunks_delta_skipped", ctypes.c_uint64),
+        ("ss_chunk_bytes_delta_skipped", ctypes.c_uint64),
+    ]
+
+
+class EdgeStats(ctypes.Structure):
+    """Counters of one edge, keyed by the remote peer's advertised p2p
+    endpoint (Communicator.stats()["edges"])."""
+    _fields_ = [
+        ("endpoint", ctypes.c_char * 64),
+        ("tx_bytes", ctypes.c_uint64),
+        ("rx_bytes", ctypes.c_uint64),
+        ("tx_frames", ctypes.c_uint64),
+        ("rx_frames", ctypes.c_uint64),
+        ("connects", ctypes.c_uint64),
+        ("stall_ms", ctypes.c_uint64),
+        ("tx_zc_frames", ctypes.c_uint64),
+        ("tx_zc_reaps", ctypes.c_uint64),
+        ("wd_state", ctypes.c_uint64),
+        ("wd_suspects", ctypes.c_uint64),
+        ("wd_confirms", ctypes.c_uint64),
+        ("wd_reissues", ctypes.c_uint64),
+        ("wd_relays", ctypes.c_uint64),
+        ("rx_relay_bytes", ctypes.c_uint64),
+        ("rx_relay_windows", ctypes.c_uint64),
+        ("dup_bytes", ctypes.c_uint64),
+        ("dup_windows", ctypes.c_uint64),
+        ("tx_sync_bytes", ctypes.c_uint64),
+        ("rx_sync_bytes", ctypes.c_uint64),
+        ("tx_stripe_windows", ctypes.c_uint64),
+        ("tx_stripe_bytes", ctypes.c_uint64),
+    ]
+
+
 def _declare(lib):
     c = ctypes
     P = c.POINTER
@@ -142,10 +219,18 @@ def _declare(lib):
     lib.pccltMasterPort.argtypes = [c.c_void_p]
     lib.pccltMasterEpoch.restype = c.c_uint64
     lib.pccltMasterEpoch.argtypes = [c.c_void_p]
+    lib.pccltMasterMetricsPort.restype = c.c_uint16
+    lib.pccltMasterMetricsPort.argtypes = [c.c_void_p]
+    lib.pccltMasterGetHealth.restype = c.c_int
+    lib.pccltMasterGetHealth.argtypes = [c.c_void_p, c.c_char_p, c.c_uint64,
+                                         P(c.c_uint64)]
+    lib.pccltGetBuildInfo.restype = c.c_char_p
+    lib.pccltGetBuildInfo.argtypes = []
 
     lib.pccltCreateCommunicator.restype = c.c_int
     lib.pccltCreateCommunicator.argtypes = [P(CommCreateParams), P(c.c_void_p)]
-    for fn in ("pccltDestroyCommunicator", "pccltConnect", "pccltUpdateTopology"):
+    for fn in ("pccltDestroyCommunicator", "pccltConnect", "pccltUpdateTopology",
+               "pccltOptimizeTopology"):
         f = getattr(lib, fn)
         f.restype = c.c_int
         f.argtypes = [c.c_void_p]
@@ -166,6 +251,42 @@ def _declare(lib):
     lib.pccltAllReduceMultipleWithRetry.argtypes = [
         c.c_void_p, P(c.c_void_p), P(c.c_void_p), P(c.c_uint64), c.c_int,
         P(ReduceDescriptor), c.c_uint64, P(ReduceInfo)]
+
+    lib.pccltAllGather.restype = c.c_int
+    lib.pccltAllGather.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
+                                   c.c_uint64, c.c_uint64, c.c_int,
+                                   c.c_uint64, P(ReduceInfo)]
+    lib.pccltGatherSlot.restype = c.c_int
+    lib.pccltGatherSlot.argtypes = [c.c_void_p, P(c.c_uint64)]
+    lib.pccltReduceScatter.restype = c.c_int
+    lib.pccltReduceScatter.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_void_p, c.c_uint64, c.c_uint64,
+        c.c_int, P(ReduceDescriptor), P(c.c_uint64), P(c.c_uint64),
+        P(ReduceInfo)]
+    lib.pccltBroadcast.restype = c.c_int
+    lib.pccltBroadcast.argtypes = [c.c_void_p, c.c_void_p, c.c_uint64,
+                                   c.c_uint64, c.c_int, P(ReduceDescriptor),
+                                   P(ReduceInfo)]
+    lib.pccltAllToAll.restype = c.c_int
+    lib.pccltAllToAll.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
+                                  c.c_uint64, c.c_uint64, c.c_int,
+                                  P(ReduceDescriptor), P(ReduceInfo)]
+
+    # telemetry: counters (always on), the process-global event recorder,
+    # and scripted faults on the wire-emulation edges
+    lib.pccltCommGetStats.restype = c.c_int
+    lib.pccltCommGetStats.argtypes = [c.c_void_p, P(CommStats)]
+    lib.pccltCommGetEdgeStats.restype = c.c_int
+    lib.pccltCommGetEdgeStats.argtypes = [c.c_void_p, P(EdgeStats), c.c_uint64,
+                                          P(c.c_uint64)]
+    lib.pccltTraceEnable.restype = c.c_int
+    lib.pccltTraceEnable.argtypes = [c.c_int]
+    lib.pccltTraceClear.restype = c.c_int
+    lib.pccltTraceClear.argtypes = []
+    lib.pccltTraceDump.restype = c.c_int
+    lib.pccltTraceDump.argtypes = [c.c_char_p]
+    lib.pccltNetemInject.restype = c.c_int
+    lib.pccltNetemInject.argtypes = [c.c_char_p, c.c_char_p]
 
     lib.pccltHashBuffer.restype = c.c_uint64
     lib.pccltHashBuffer.argtypes = [c.c_int, c.c_void_p, c.c_uint64]

@@ -5,9 +5,11 @@ MasterNode, TensorInfo/SharedState, and the PcclError family. Collective
 ops raise PcclError subclasses on peer churn and the caller retries after
 update_topology().
 
-The native core reads and writes host memory only. The ring's callers
-stage CUDA tensors through pinned host buffers (parallel/diloco.py,
-parallel/hierarchical.py). A shared-state entry of a CPU tensor shares its
+The native core reads and writes host memory only: every collective
+(all_reduce, all_gather, reduce_scatter, broadcast, all_to_all) takes host
+ndarrays, and the callers stage CUDA tensors through pinned host buffers
+(parallel/diloco.py, parallel/hierarchical.py; a pinned CPU tensor's
+`.numpy()` is such an array). A shared-state entry of a CPU tensor shares its
 storage (`TensorInfo.from_torch`, hashed by the core); one of a CUDA tensor
 is hashed on the card (`TensorInfo.from_torch_device`: H1 computes the
 `simple-tpu` digest, and the bytes go to the host only when the sync must
@@ -114,6 +116,16 @@ _NP_TO_DTYPE = {
 }
 
 
+_DTYPE_ITEMSIZE = {
+    DataType.UINT8: 1, DataType.INT8: 1,
+    DataType.UINT16: 2, DataType.INT16: 2,
+    DataType.UINT32: 4, DataType.INT32: 4,
+    DataType.UINT64: 8, DataType.INT64: 8,
+    DataType.FLOAT16: 2, DataType.BFLOAT16: 2,
+    DataType.FLOAT32: 4, DataType.FLOAT64: 8,
+}
+
+
 def _np_dtype_of(arr: np.ndarray) -> DataType:
     try:
         return _NP_TO_DTYPE[arr.dtype]
@@ -215,6 +227,56 @@ def shm_ndarray(shape, dtype=np.float32) -> np.ndarray:
     return np.ndarray(shape, dtype=dtype, buffer=buf)
 
 
+# ---------------------------------------------------- flight-recorder trace
+
+def trace_enable(on: bool = True) -> None:
+    """Switch the native flight recorder's event capture on or off
+    (process-global). The counters of Communicator.stats() are always on;
+    this gates only the event ring behind trace_events() and trace_dump().
+    PCCLT_TRACE=path in the environment turns capture on at load and dumps
+    at exit."""
+    _check(_native.load().pccltTraceEnable(1 if on else 0), "trace enable")
+
+
+def trace_clear() -> None:
+    """Drop every captured event (isolates phases that share a process)."""
+    _check(_native.load().pccltTraceClear(), "trace clear")
+
+
+def trace_dump(path: str) -> None:
+    """Write the event ring as Chrome trace-event JSON. Timestamps are
+    CLOCK_MONOTONIC microseconds, the clock of utils/profiler.py's
+    sections."""
+    _check(_native.load().pccltTraceDump(path.encode()), "trace dump")
+
+
+def trace_events() -> list:
+    """The recorder's current events as Chrome trace-event dicts (the
+    parsed form of trace_dump's output)."""
+    import json
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        trace_dump(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def netem_inject(endpoint: str, spec: str) -> None:
+    """Arm a time-scripted fault schedule on the wire-emulation edge toward
+    `endpoint` ("ip:port"), offsets relative to now, e.g.
+    "degrade@t=0s:40mbit/8s", "flap@t=1s:200msx5" or "blackhole@t=0s:2s"
+    (';' separates faults). An empty spec disarms the edge."""
+    _check(_native.load().pccltNetemInject(endpoint.encode(), spec.encode()),
+           "netem inject")
+
+
+def build_info() -> str:
+    """The native core's build string (compiler, flags, features)."""
+    return _native.load().pccltGetBuildInfo().decode()
+
+
 # ---------------------------------------------------------------- master
 
 class MasterNode:
@@ -244,6 +306,37 @@ class MasterNode:
     def epoch(self) -> int:
         """1 fresh (or journal-less), +1 on every journaled restart."""
         return int(self._lib.pccltMasterEpoch(self._h))
+
+    @property
+    def metrics_port(self) -> int:
+        """Port of the plain-HTTP /metrics (Prometheus text) and /health
+        (JSON) endpoint, which PCCLT_MASTER_METRICS_PORT enables ("0": a
+        port the kernel picks). 0 while disabled or before run()."""
+        return int(self._lib.pccltMasterMetricsPort(self._h))
+
+    def health(self) -> dict:
+        """The master's fleet-health document (the /health JSON: epoch,
+        world, client and limbo counts, each peer's digest freshness, each
+        edge's throughput and stall with straggler flags), read from the
+        native state, so the HTTP endpoint may be off. Peers appear once
+        they push telemetry digests (PCCLT_TELEMETRY_PUSH_MS)."""
+        import json
+
+        need = ctypes.c_uint64()
+        _check(self._lib.pccltMasterGetHealth(self._h, None, 0,
+                                              ctypes.byref(need)), "health")
+        # the document can grow between the sizing call and the copy (live
+        # digests); the copy reports the true length again, so retry until
+        # it fits
+        for _ in range(8):
+            cap = need.value + 256
+            buf = ctypes.create_string_buffer(cap)
+            _check(self._lib.pccltMasterGetHealth(self._h, buf, cap,
+                                                  ctypes.byref(need)), "health")
+            if need.value < cap:
+                return json.loads(buf.value.decode())
+        raise PcclError(Result.INTERNAL_ERROR,
+                        "health document kept outgrowing its buffer")
 
     def interrupt(self) -> None:
         _check(self._lib.pccltInterruptMaster(self._h))
@@ -540,6 +633,38 @@ class Communicator:
     def world_size(self) -> int:
         return self.get_attribute(Attribute.PEER_GROUP_WORLD_SIZE)
 
+    @property
+    def global_world_size(self) -> int:
+        return self.get_attribute(Attribute.GLOBAL_WORLD_SIZE)
+
+    @property
+    def num_peer_groups(self) -> int:
+        return self.get_attribute(Attribute.NUM_DISTINCT_PEER_GROUPS)
+
+    @property
+    def largest_peer_group(self) -> int:
+        """The largest group's world size; with num_peer_groups, the grid
+        fullness check: global == num_groups * largest."""
+        return self.get_attribute(Attribute.LARGEST_PEER_GROUP_WORLD_SIZE)
+
+    @property
+    def master_epoch(self) -> int:
+        """The master epoch seen at welcome or the last session resume; a
+        journaled master bumps it at every restart."""
+        return self.get_attribute(Attribute.MASTER_EPOCH)
+
+    @property
+    def reconnect_count(self) -> int:
+        """How often this communicator resumed its master session."""
+        return self.get_attribute(Attribute.RECONNECT_COUNT)
+
+    @property
+    def shared_state_revision(self) -> int:
+        """The last shared-state revision known complete group-wide. If a
+        sync raised and this already covers its revision, the round ended
+        just before the fault: skip the retry."""
+        return self.get_attribute(Attribute.SHARED_STATE_REVISION)
+
     def update_topology(self) -> None:
         _check(self._lib.pccltUpdateTopology(self._h), "update topology")
 
@@ -547,6 +672,45 @@ class Communicator:
         out = ctypes.c_int()
         _check(self._lib.pccltArePeersPending(self._h, ctypes.byref(out)))
         return out.value != 0
+
+    def optimize_topology(self) -> None:
+        """Probe the bandwidth between the group's peers and adopt the ring
+        the master solves for (a later call may adopt its improved
+        solution)."""
+        _check(self._lib.pccltOptimizeTopology(self._h), "optimize topology")
+
+    # -- telemetry --
+
+    _EDGE_FIELDS = tuple(name for name, _ in _native.EdgeStats._fields_
+                         if name != "endpoint")
+
+    def stats(self) -> dict:
+        """This communicator's counters, monotonic since connect:
+        {"counters": {collectives_ok, ...}, "edges": {"ip:port": {tx_bytes,
+        rx_bytes, tx_frames, ...}}}, an edge keyed by the remote peer's
+        advertised p2p endpoint."""
+        cs = _native.CommStats()
+        _check(self._lib.pccltCommGetStats(self._h, ctypes.byref(cs)), "stats")
+        counters = {name: int(getattr(cs, name)) for name, _ in cs._fields_}
+        n = ctypes.c_uint64()
+        _check(self._lib.pccltCommGetEdgeStats(self._h, None, 0,
+                                               ctypes.byref(n)), "edge stats")
+        edges = {}
+        if n.value:
+            buf = (_native.EdgeStats * n.value)()
+            _check(self._lib.pccltCommGetEdgeStats(self._h, buf, n.value,
+                                                   ctypes.byref(n)),
+                   "edge stats")
+            for e in buf[:min(n.value, len(buf))]:
+                edges[e.endpoint.decode()] = {
+                    k: int(getattr(e, k)) for k in self._EDGE_FIELDS}
+        return {"counters": counters, "edges": edges}
+
+    def trace_events(self) -> list:
+        """The flight recorder's events (process-global: every
+        communicator and master of the process feeds one ring); see the
+        module function trace_events."""
+        return trace_events()
 
     # -- collectives --
 
@@ -580,19 +744,174 @@ class Communicator:
     def all_reduce(self, send, recv=None, *, op: ReduceOp = ReduceOp.SUM,
                    tag: int = 0,
                    quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE,
-                   quantized_dtype: DataType = DataType.UINT8) -> ReduceInfo:
+                   quantized_dtype: DataType = DataType.UINT8,
+                   dtype: Optional[DataType] = None) -> ReduceInfo:
         """Blocking ring all-reduce; recv=None reduces in place. Every group
         member must call with the same tag. Raises ConnectionLostError /
-        OperationAbortedError on peer churn."""
+        OperationAbortedError on peer churn.
+
+        dtype overrides the wire dtype numpy cannot express: BFLOAT16 with
+        the int16 (or uint16) arrays that hold bf16 bits (`_host_view` of a
+        bf16 tensor). Its element size must be the arrays'."""
         send, recv = self._buffers(send, recv)
         desc = ReduceDescriptor(tag, op, quantization, quantized_dtype)._as_c()
         info = _native.ReduceInfo()
+        wire = _np_dtype_of(send) if dtype is None else DataType(dtype)
+        if _DTYPE_ITEMSIZE[wire] != send.dtype.itemsize:
+            # the element count crosses the C API, not bytes: a mismatched
+            # override would reduce a fraction of the buffer, or past it
+            raise ValueError(
+                f"wire dtype {wire.name} is {_DTYPE_ITEMSIZE[wire]} "
+                f"bytes/elem but the arrays hold {send.dtype.itemsize}-byte "
+                f"elements")
         code = self._lib.pccltAllReduce(
             self._h, send.ctypes.data_as(ctypes.c_void_p),
             recv.ctypes.data_as(ctypes.c_void_p), send.size,
-            int(_np_dtype_of(send)), ctypes.byref(desc), ctypes.byref(info))
+            int(wire), ctypes.byref(desc), ctypes.byref(info))
         _check(code, "all_reduce")
         return ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
+
+    @staticmethod
+    def _recv_buffer(recv, send: np.ndarray, capacity: int) -> np.ndarray:
+        """Check a caller's recv buffer for a collective that writes up to
+        `capacity` elements of send's dtype into it."""
+        if recv.dtype != send.dtype:
+            raise ValueError(f"recv dtype {recv.dtype} != send {send.dtype}")
+        if not recv.flags["C_CONTIGUOUS"] or not recv.flags["WRITEABLE"]:
+            raise ValueError("recv must be writable and C-contiguous")
+        if recv.size < capacity:
+            raise ValueError(f"recv capacity {recv.size} < {capacity}")
+        return recv
+
+    def all_gather(self, send, recv=None, *, tag: int = 0) -> tuple:
+        """Ring all-gather: every peer contributes `send`; returns (recv,
+        ReduceInfo), where segment i is the contribution of the peer at
+        sorted-uuid position i (this peer's is `gather_slot`). recv=None
+        allocates (world_size, *send.shape); a caller's recv must be
+        writable, C-contiguous, send's dtype, with capacity >= world_size *
+        send.size. The core checks the capacity again against the world at
+        commence, so a joiner admitted meanwhile aborts the op rather than
+        overflow it. Alone, the own segment lands at slot 0."""
+        send = np.ascontiguousarray(send)
+        world = self.world_size
+        if recv is None:
+            recv = np.empty((world,) + send.shape, dtype=send.dtype)
+        self._recv_buffer(recv, send, world * send.size)
+        if world <= 1:
+            np.copyto(recv.reshape(-1)[:send.size].reshape(send.shape), send)
+            return recv, ReduceInfo(0, 0, 1)
+        info = _native.ReduceInfo()
+        code = self._lib.pccltAllGather(
+            self._h, send.ctypes.data_as(ctypes.c_void_p),
+            recv.ctypes.data_as(ctypes.c_void_p), send.size, recv.size,
+            int(_np_dtype_of(send)), tag, ctypes.byref(info))
+        _check(code, "all_gather")
+        return recv, ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
+
+    @property
+    def gather_slot(self) -> int:
+        """This peer's segment index in all_gather's output and its slot
+        for broadcast's root and all_to_all's blocks: its position among
+        the ring's sorted peer uuids (query again after churn)."""
+        slot = ctypes.c_uint64()
+        _check(self._lib.pccltGatherSlot(self._h, ctypes.byref(slot)),
+               "gather_slot")
+        return int(slot.value)
+
+    def reduce_scatter(self, send, recv=None, *, tag: int = 0,
+                       quantization: QuantizationAlgorithm =
+                       QuantizationAlgorithm.NONE,
+                       quantized_dtype: DataType = DataType.UINT8) -> tuple:
+        """Ring reduce-scatter: the group SUM of `send`, of which each peer
+        keeps its own contiguous chunk. Returns (chunk, offset,
+        ReduceInfo): chunk is a view of recv and chunk[i] == sum of
+        send[offset + i]. Chunks follow ring rank, so (offset, count) can
+        change across churn: use the returned values. recv=None allocates
+        ceil(count / world) elements; a caller's recv must be writable,
+        C-contiguous, send's dtype, with at least that capacity (checked
+        again by the core against the world at commence). Alone, the chunk
+        is the whole of send at offset 0."""
+        send = np.ascontiguousarray(send)
+        world = self.world_size
+        if recv is None:
+            recv = np.empty(max(1, -(-send.size // max(world, 1))),
+                            dtype=send.dtype)
+        if world <= 1:
+            self._recv_buffer(recv, send, send.size)
+            np.copyto(recv.reshape(-1)[:send.size], send.reshape(-1))
+            return recv.reshape(-1)[:send.size], 0, ReduceInfo(0, 0, 1)
+        # its capacity is checked by the core, against the world at commence
+        self._recv_buffer(recv, send, 0)
+        desc = ReduceDescriptor(tag, ReduceOp.SUM, quantization,
+                                quantized_dtype)._as_c()
+        info = _native.ReduceInfo()
+        off = ctypes.c_uint64()
+        cnt = ctypes.c_uint64()
+        code = self._lib.pccltReduceScatter(
+            self._h, send.ctypes.data_as(ctypes.c_void_p),
+            recv.ctypes.data_as(ctypes.c_void_p), send.size, recv.size,
+            int(_np_dtype_of(send)), ctypes.byref(desc), ctypes.byref(off),
+            ctypes.byref(cnt), ctypes.byref(info))
+        _check(code, "reduce_scatter")
+        return (recv.reshape(-1)[:int(cnt.value)], int(off.value),
+                ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size))
+
+    def broadcast(self, buf, *, root: int, tag: int = 0,
+                  quantization: QuantizationAlgorithm =
+                  QuantizationAlgorithm.NONE,
+                  quantized_dtype: DataType = DataType.UINT8) -> ReduceInfo:
+        """In-place broadcast from the peer whose gather_slot is `root`;
+        every peer must pass the same root (a mismatch is a parameter
+        disagreement, and the minority is kicked). On return buf holds the
+        root's bytes on every peer. Alone, buf is left as it is."""
+        if not isinstance(buf, np.ndarray) or not buf.flags["C_CONTIGUOUS"] \
+                or not buf.flags["WRITEABLE"]:
+            raise ValueError("broadcast buffer must be a writable "
+                             "C-contiguous ndarray (updated in place)")
+        if self.world_size <= 1:
+            return ReduceInfo(0, 0, 1)
+        desc = ReduceDescriptor(tag, ReduceOp.SUM, quantization,
+                                quantized_dtype)._as_c()
+        info = _native.ReduceInfo()
+        code = self._lib.pccltBroadcast(
+            self._h, buf.ctypes.data_as(ctypes.c_void_p), buf.size,
+            int(root), int(_np_dtype_of(buf)), ctypes.byref(desc),
+            ctypes.byref(info))
+        _check(code, "broadcast")
+        return ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
+
+    def all_to_all(self, send, recv=None, *, tag: int = 0,
+                   quantization: QuantizationAlgorithm =
+                   QuantizationAlgorithm.NONE,
+                   quantized_dtype: DataType = DataType.UINT8) -> tuple:
+        """Personalized exchange: `send` is world_size equal blocks in slot
+        order; block j goes to the peer of slot j, and recv block i is the
+        block the peer of slot i addressed to this one. send.size must be
+        divisible by world_size. recv=None allocates send's shape; a
+        caller's recv must be writable, C-contiguous, send's dtype, with
+        capacity >= send.size. Returns (recv, ReduceInfo). Alone, recv is a
+        copy of send."""
+        send = np.ascontiguousarray(send)
+        world = self.world_size
+        if recv is None:
+            recv = np.empty(send.shape, dtype=send.dtype)
+        self._recv_buffer(recv, send, send.size)
+        if world <= 1:
+            np.copyto(recv.reshape(-1)[:send.size], send.reshape(-1))
+            return recv, ReduceInfo(0, 0, 1)
+        if send.size % world:
+            raise ValueError(f"send size {send.size} not divisible by "
+                             f"world {world}")
+        desc = ReduceDescriptor(tag, ReduceOp.SUM, quantization,
+                                quantized_dtype)._as_c()
+        info = _native.ReduceInfo()
+        code = self._lib.pccltAllToAll(
+            self._h, send.ctypes.data_as(ctypes.c_void_p),
+            recv.ctypes.data_as(ctypes.c_void_p), send.size // world,
+            recv.size, int(_np_dtype_of(send)), ctypes.byref(desc),
+            ctypes.byref(info))
+        _check(code, "all_to_all")
+        return recv, ReduceInfo(info.tx_bytes, info.rx_bytes, info.world_size)
 
     def all_reduce_async(self, send, recv=None, *, op: ReduceOp = ReduceOp.SUM,
                          tag: Optional[int] = None,

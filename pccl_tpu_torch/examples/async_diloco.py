@@ -33,7 +33,6 @@ trace.
 from __future__ import annotations
 
 import argparse
-import resource
 import sys
 import time
 
@@ -59,6 +58,7 @@ def main(argv=None) -> int:
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.diloco import AsyncDiloco, DilocoConfig
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
 
     dev, attn_fn = common.device_and_attention(ap, args)
 
@@ -120,7 +120,7 @@ def main(argv=None) -> int:
     extra = f" revision={dl.step} digest={dl.digest()}"
     if dev.type == "cuda":
         extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
-    extra += f" peak_rss_mib={resource.getrusage(resource.RUSAGE_SELF).ru_maxrss >> 10}"
+    extra += f" peak_rss_mib={peak_rss_mib()}"
     return common.report_final(first_loss, last_loss, comm,
                                require_descent=not args.no_descent_check,
                                extra=extra)

@@ -23,7 +23,9 @@ inner AdamW starts afresh with its schedule shifted by the steps already
 run, and the data stream is drained past the batches they used. It prints
     resumed from outer step N digest D restore_s S
 where D is the restored outer vector's digest, equal to the one outer step
-N - 1 printed.
+N - 1 printed. The FINAL line adds, on a card, the peak of the device
+memory torch allocated (peak_alloc_mib), and the process's peak resident
+host memory (peak_rss_mib).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ def main(argv=None) -> int:
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
 
     dev, attn_fn = common.device_and_attention(ap, args)
 
@@ -146,8 +149,13 @@ def main(argv=None) -> int:
                   f"save_s {time.perf_counter() - t0:.3f}", flush=True)
 
     common.finish_profile(args, prof)
+    extra = ""
+    if dev.type == "cuda":
+        extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
+    extra += f" peak_rss_mib={peak_rss_mib()}"
     return common.report_final(first_loss, last_loss, comm,
-                               require_descent=not args.no_descent_check)
+                               require_descent=not args.no_descent_check,
+                               extra=extra)
 
 
 if __name__ == "__main__":

@@ -40,6 +40,9 @@ independently of H1, on a card the peak of the device memory torch
 allocated (peak_alloc_mib), and the process's peak resident host memory
 (peak_rss_mib).
 
+--shm-staging: the gradient vector crosses to the host into a registered
+shm buffer instead of a pinned one, so that peers on one host reduce
+zero-copy (parallel/hierarchical.py).
 --grad-accum A: each step takes A microbatches of B sequences, one
 microbatch's activations live at a time (parallel/train.py
 accum_value_and_grad), and the ring still moves one averaged gradient.
@@ -62,7 +65,6 @@ from __future__ import annotations
 import argparse
 import hashlib
 import os
-import resource
 import struct
 import sys
 import time
@@ -148,6 +150,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--shm-staging", action="store_true",
+                    help="stage the gradient vector in a registered shm buffer "
+                         "(zero-copy ring when peers share this host)")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches a step; the ring still moves one "
                          "averaged gradient a step")
@@ -178,6 +183,7 @@ def main(argv=None) -> int:
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.hierarchical import HierarchicalAllReduce
     from pccl_tpu_torch.utils.data import prefetch_to_device
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
 
     dev, attn_fn = common.device_and_attention(ap, args)
     try:
@@ -196,7 +202,8 @@ def main(argv=None) -> int:
 
     def make_ring(comm):
         return HierarchicalAllReduce(
-            comm, state.params, quantization=common.quant_from_arg(args.quantize))
+            comm, state.params, quantization=common.quant_from_arg(args.quantize),
+            shm_staging=args.shm_staging)
 
     ring = make_ring(comm)
     prof = common.make_profiler(args)
@@ -385,7 +392,7 @@ def main(argv=None) -> int:
     extra = f" params_blake2b={params_blake2b(state.params)}"
     if dev.type == "cuda":
         extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
-    extra += f" peak_rss_mib={resource.getrusage(resource.RUSAGE_SELF).ru_maxrss >> 10}"
+    extra += f" peak_rss_mib={peak_rss_mib()}"
     return common.report_final(
         first_loss, last_loss, comm, require_descent=not args.no_descent_check,
         extra=extra)

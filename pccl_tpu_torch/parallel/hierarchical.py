@@ -9,11 +9,17 @@ left, per all_reduce:
 
 1. the gradients, flattened in the JAX package's leaf order
    (parallel/codec.py), into one fp32 vector on the card, allocated once;
-2. device -> host into a pinned buffer, allocated once;
+2. device -> host into a pinned buffer, or with `shm_staging` into a
+   registered shm buffer (comm.shm_ndarray) through a CPU tensor view of
+   it, so that peers on one host reduce zero-copy; either is allocated
+   once;
 3. AVG all-reduce in place over the ring, with the retry policy of
-   parallel/ring.py (quantization optional);
+   parallel/ring.py: quantization optional, `windows` concurrent tagged
+   collectives, `max_retries` for the single-op path;
 4. host -> device, then the vector back into the gradient tensors.
 
+Shm staging applies only without quantization, as in the JAX package: a
+quantized ring sends from its quantize scratch, not from the stage.
 `comm=None` is the identity, so one loop runs alone or in a group.
 """
 
@@ -21,9 +27,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from ..comm import Communicator, QuantizationAlgorithm
+from ..comm import Communicator, DataType, QuantizationAlgorithm, shm_ndarray
 from .codec import build_codec
 from .ring import avg_all_reduce_windowed
 
@@ -37,17 +44,28 @@ class HierarchicalAllReduce:
 
     def __init__(self, comm: Optional[Communicator],
                  template: Dict[str, torch.Tensor], *,
-                 quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE):
+                 quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE,
+                 quantized_dtype: DataType = DataType.UINT8,
+                 max_retries: int = 16, shm_staging: bool = False,
+                 windows: int = 1):
         self.comm = comm
         self.quantization = quantization
+        self.quantized_dtype = quantized_dtype
+        self.max_retries = max_retries
+        self.windows = windows
+        self.shm_staging = shm_staging and \
+            quantization == QuantizationAlgorithm.NONE
         self._codec = build_codec(template)
         self._vec = self._host = None
         if comm is not None:
             dev = next(iter(template.values())).device
-            self._vec = torch.empty(self._codec.count, dtype=torch.float32,
-                                    device=dev)
-            self._host = torch.empty(self._codec.count, dtype=torch.float32,
-                                     pin_memory=dev.type == "cuda")
+            n = self._codec.count
+            self._vec = torch.empty(n, dtype=torch.float32, device=dev)
+            if self.shm_staging:
+                self._host = torch.from_numpy(shm_ndarray(n, np.float32))
+            else:
+                self._host = torch.empty(n, dtype=torch.float32,
+                                         pin_memory=dev.type == "cuda")
 
     @property
     def count(self) -> int:
@@ -62,9 +80,13 @@ class HierarchicalAllReduce:
         self._codec.flat_into(grads, self._vec)
         self._host.copy_(self._vec)        # D2H; waits for the device
         avg_all_reduce_windowed(self.comm, self._host.numpy(),
-                                quantization=self.quantization)
-        # H2D without a host wait: the next write to the pinned buffer is
-        # the synchronising D2H above, which orders after this copy
+                                windows=self.windows,
+                                quantization=self.quantization,
+                                quantized_dtype=self.quantized_dtype,
+                                max_retries=self.max_retries)
+        # H2D without a host wait from the pinned buffer: its next write is
+        # the synchronising D2H above, which orders after this copy (from
+        # the pageable shm stage the copy is synchronous)
         self._vec.copy_(self._host, non_blocking=True)
         self._codec.unflat_into(self._vec, grads)
         return grads

@@ -185,8 +185,10 @@ def test_all_reduce_crosses_the_ring_as_one_flat_vector(monkeypatch):
     want = {n: g * 2 + 1 for n, g in grads.items()}
     calls = []
 
-    def fake_ring(comm, buf, quantization):
-        calls.append((comm, quantization))
+    def fake_ring(comm, buf, *, windows, quantization, quantized_dtype,
+                  max_retries):
+        calls.append((comm, windows, quantization, quantized_dtype,
+                      max_retries))
         np.testing.assert_array_equal(buf, codec.flat(grads).numpy())
         buf *= 2
         buf += 1
@@ -197,7 +199,8 @@ def test_all_reduce_crosses_the_ring_as_one_flat_vector(monkeypatch):
     ring = HierarchicalAllReduce(comm, state.params)
     assert ring.count == sum(p.numel() for p in state.params.values())
     assert ring.all_reduce(grads) is grads
-    assert calls == [(comm, hierarchical.QuantizationAlgorithm.NONE)]
+    assert calls == [(comm, 1, hierarchical.QuantizationAlgorithm.NONE,
+                      hierarchical.DataType.UINT8, 16)]
     for n, g in grads.items():
         torch.testing.assert_close(g, want[n], rtol=0, atol=0)
 

@@ -1,5 +1,6 @@
 """pccl_tpu_torch.utils (TokenDataset, Profiler, Checkpointer,
-DilocoCheckpoint) against pccl_tpu.utils on the CPU.
+DilocoCheckpoint) against pccl_tpu.utils on the CPU, and the examples'
+peak host memory (utils/rss.py).
 
 TokenDataset is a copy and must give bit-equal batches for the same
 (seed, worker_index). The profiler is held to the JAX package's test of its
@@ -10,6 +11,11 @@ outer steps (the port's apply is bit-equal with JAX's on the CPU).
 """
 
 import json
+import resource
+import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -218,3 +224,60 @@ def test_diloco_checkpoint_fresh_start_is_step_zero(tmp_path):
     tdl = diloco.Diloco(None, {"w": torch.ones(3)})
     assert checkpoint.DilocoCheckpoint(str(tmp_path)).maybe_restore(tdl) == 0
     assert tdl.step == 0 and torch.equal(tdl.outer_vec, torch.ones(3))
+
+
+# ------------------------------------------------------------- peak RSS
+
+def test_peak_rss_is_the_process_own():
+    """A child spawned by a parent that touched 512 MiB reports its own
+    peak (VmHWM), far below the parent's; ru_maxrss, which Linux carries
+    over fork and execve, reports at least the parent's buffer, unless
+    the child was started through the relay."""
+    from pccl_tpu_torch.utils.rss import peak_rss_mib, relay_argv
+
+    big = np.ones(512 << 18, dtype=np.float32)      # 512 MiB, every page
+    parent = peak_rss_mib()
+    assert parent >= 512
+    code = ("import resource\n"
+            "from pccl_tpu_torch.utils.rss import peak_rss_mib\n"
+            "print(peak_rss_mib(), "
+            "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss >> 10)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=Path(__file__).resolve().parent.parent)
+    assert r.returncode == 0, r.stderr
+    own, maxrss = (int(v) for v in r.stdout.split())
+    assert own < parent - 256, (own, parent)
+    assert maxrss >= 512, (maxrss, parent)
+    assert resource.getrusage(resource.RUSAGE_SELF).ru_maxrss >> 10 >= 512
+    # through the relay, ru_maxrss too is the child's own: what a kernel
+    # without VmHWM (gVisor) reports
+    r = subprocess.run(relay_argv([sys.executable, "-c", code]),
+                       capture_output=True, text=True, timeout=120,
+                       cwd=Path(__file__).resolve().parent.parent)
+    assert r.returncode == 0, r.stderr
+    own, maxrss = (int(v) for v in r.stdout.split())
+    assert maxrss < parent - 256 and own < parent - 256, (own, maxrss, parent)
+    del big
+
+
+def test_relay_passes_exit_codes_and_signals():
+    """The relay ends as its child does: with its exit code, or killed by
+    the signal that ended it; SIGTERM to the relay reaches the child."""
+    from pccl_tpu_torch.utils.rss import relay_argv
+
+    r = subprocess.run(relay_argv([sys.executable, "-c",
+                                   "import sys; sys.exit(3)"]), timeout=60)
+    assert r.returncode == 3
+    p = subprocess.Popen(relay_argv([sys.executable, "-c",
+                                     "import time; print('up', flush=True); "
+                                     "time.sleep(60)"]),
+                         stdout=subprocess.PIPE, text=True)
+    try:
+        assert p.stdout.readline().strip() == "up"
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=30) == -signal.SIGTERM
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
