@@ -14,12 +14,19 @@ Phases, in order; any failure exits non-zero:
    HGMMA and UTMALDG instructions in their SASS (whose highest register
    index is logged);
 3. kernels: K1 (forward), K2 (dq) and K3 (dk, dv) against their plain
-   PyTorch versions (fp32 on the same bf16 inputs) at three shapes: the
-   main path's, a GQA shape at head dim 128, and a ragged non-causal shape;
+   PyTorch versions (fp32 on the same bf16 inputs) at the shapes of
+   SHAPES: the main path's, a GQA shape at head dim 128, a ragged
+   non-causal shape, phase 7's Llama-700m shape and phase 13's ring
+   steps (causal and not, and at Dh 128 with GQA);
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
    beside SDPA's backward, which computes dq, dk and dv in one call;
+3a. with_lse: flash_attention_with_lse's forward, and its backward with a
+   random lse cotangent (folded into K2's and K3's delta, as every ring
+   step's backward gets it), against dense_attention_with_lse under
+   autograd at phase 13's ring-step shapes; dq and dk without the lse
+   cotangent must fail the check;
 3b. hash: H1 (the `simple-tpu` content hash) bit for bit against its plain
    version on the card, the numpy twin and the C++ core's pccltHashBuffer,
    at ragged byte counts, bf16, int8, uint64 and GPT-2's tok_emb; a one-bit
@@ -101,6 +108,24 @@ Phases, in order; any failure exits non-zero:
    the edges' tx_bytes against the bytes the ops sent, ring events in the
    flight recorder, and an all-reduce after optimize_topology, bit-equal
    across the peers.
+13. sequence parallelism: four rank processes on the card in one gloo
+   world (`python -m chip_smoke --sp-rank R --sp-port P`, started
+   through the relay), each on its block of a GPT-2 124M batch (B=2,
+   global T=4096, sp=4, so K1-K3 at [2, 1024, 12, 64]): 3 steps of
+   train.build_train_step(mesh, seq_axis="sp") with ring attention. Rank
+   0 first runs the full T=4096 step with flash_attention alone; step 0's
+   loss must agree with it within 1e-3 nats and the averaged gradient
+   have cosine >= 0.9998 (phase 4's limits). After every step H1's
+   digests of the parameters must be equal on all ranks, and the hops
+   must have sent 2 (n-1) L K/V pairs a rank; K1-K3 must launch 3 x 12 x 4
+   times on every rank. Then Llama-700m widths at 2 layers (G=3, Dh 128)
+   on a 2 x 2 (dp, sp) mesh, one loss-and-grad against its full-sequence
+   reference with the same limits, and quantized_pmean (bitwise equal on
+   every rank, within 16 int8 steps of max|x| of the exact sum) and
+   local_mean (allclose to the fp32 mean) of 123,587,328 fp32 a rank.
+   Logs each step's tok/s over the global tokens, the share of the step
+   spent in hops (and in their D2H/H2D staging), and the collectives'
+   seconds and bytes.
 
 Every peer's FINAL line reports its own peak host RSS: each is started
 through a relay that forks it (utils/rss.relay_argv): a user-space kernel
@@ -160,7 +185,13 @@ SHAPES = [
     ("ragged", dict(B=2, T=1000, H=4, Hkv=4, D=64, causal=False)),
     # phase 7's attention: Llama-700m, G = 3 q heads per kv head
     ("llama700m", dict(B=2, T=2048, H=12, Hkv=4, D=128, causal=True)),
+    # phase 13's ring steps: GPT-2 at sp=4 (step 0 causal, the others
+    # not), and Llama-700m widths on the 2 x 2 (dp, sp) mesh
+    ("sp", dict(B=2, T=1024, H=12, Hkv=12, D=64, causal=False)),
+    ("sp_causal", dict(B=2, T=1024, H=12, Hkv=12, D=64, causal=True)),
+    ("sp_gqa", dict(B=1, T=2048, H=12, Hkv=4, D=128, causal=False)),
 ]
+WITH_LSE_SHAPES = ("sp", "sp_causal", "sp_gqa")
 
 # Each output is held two ways, so that neither its largest elements nor its
 # bulk can hide an error (causal rows differ in size by tens of times: row 0
@@ -494,6 +525,64 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
         if not ok:
             raise SmokeError(f"kernels disagree with their plain versions at {tag}")
+    return results
+
+
+def phase_with_lse() -> dict:
+    """flash_attention_with_lse (K1; K2 and K3 with delta - dlse) against
+    dense_attention_with_lse under autograd, on the same bf16 inputs (the
+    dense one in fp32), with a random lse cotangent: the ring folds each
+    step's lse, so every step's backward gets one. Returns the errors."""
+    import torch
+
+    from pccl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    shapes = dict(SHAPES)
+    results = {}
+    for tag in WITH_LSE_SHAPES:
+        B, T, H, Hkv, D, causal = (shapes[tag][k] for k in
+                                   ("B", "T", "H", "Hkv", "D", "causal"))
+        gen = torch.Generator(device=dev).manual_seed(4321)
+
+        def rnd(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        q, k, v, do = rnd(B, T, H, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D), \
+            rnd(B, T, H, D)
+        dlse = rnd(B, H, T, dtype=torch.float32)
+
+        def run(attn, dtype, cot_lse):
+            xs = [x.to(dtype).requires_grad_(True) for x in (q, k, v)]
+            out, lse = attn(*xs, causal)
+            grads = torch.autograd.grad((out, lse), xs,
+                                        (do.to(dtype), cot_lse))
+            return dict(zip(("out", "lse", "dq", "dk", "dv"),
+                            (out.detach(), lse.detach(), *grads)))
+
+        got = run(fa.flash_attention_with_lse, torch.bfloat16, dlse)
+        ref = run(fa.dense_attention_with_lse, torch.float32, dlse)
+        torch.cuda.synchronize()
+        errs = {name: compare(name, got[name], ref[name]) for name in ref}
+        log(f"with_lse @ {tag} {shapes[tag]}:")
+        for name, e in errs.items():
+            log(f"  {fmt_err(name, e)}{'' if e['ok'] else '  FAIL'}")
+        if not all(e["ok"] for e in errs.values()):
+            raise SmokeError(f"flash_attention_with_lse disagrees with "
+                             f"dense_attention_with_lse at {tag}")
+        # the check must see the lse cotangent: the reference's dq and dk
+        # without it (dv does not depend on it) must fail
+        no_dlse = run(fa.dense_attention_with_lse, torch.float32,
+                      torch.zeros_like(dlse))
+        for name in ("dq", "dk"):
+            e = compare(name, no_dlse[name].bfloat16(), ref[name])
+            log(f"  control, lse cotangent dropped: {fmt_err(name, e)}")
+            if e["ok"]:
+                raise SmokeError(f"the {name} check passes a backward that "
+                                 f"drops the lse cotangent at {tag}")
+        results[tag] = errs
+        del q, k, v, do, dlse, got, ref, no_dlse
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1680,6 +1769,291 @@ def phase_comm(dev: str = "cuda") -> dict:
     return {"launches": launches, "peers": res}
 
 
+# ------------------------------------------------------------------ phase 13
+
+# GPT-2 124M at 4 sp ranks on the card: each rank runs K1-K3 at [2, 1024,
+# 12, 64]; then Llama-700m widths at 2 layers on a 2 x 2 (dp, sp) mesh
+SP = dict(model="gpt2", batch=2, block=4096, steps=3, ranks=4)
+SP_GQA = dict(model="700m", n_layer=2, batch=2, block=4096, mesh=(2, 2))
+SP_TIMEOUT_S = 300
+QRING_BLOCK = 256
+
+
+def _flat_grads(state):
+    import torch
+
+    return torch.cat([state.params[n].grad.float().reshape(-1)
+                      for n in sorted(state.params)])
+
+
+def _against_reference(state, ref) -> dict:
+    """The loss gap and the gradient cosine of this rank's averaged
+    gradients against the full-sequence reference (loss, flat gradient)."""
+    import torch
+
+    return {"ref_loss": ref[0],
+            "cosine": torch.nn.functional.cosine_similarity(
+                _flat_grads(state), ref[1], dim=0).item()}
+
+
+def _reference(cfg, state, tokens, targets):
+    """One process's full-sequence loss and gradients: flash_attention
+    directly, no ring."""
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    loss = train_lib.build_loss_and_grad(cfg, attn_fn=fa.flash_attention)(
+        state, tokens, targets).item()
+    grads = _flat_grads(state)
+    state.optimizer.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def sp_rank(rank: int, port: int) -> None:
+    """One of phase 13's four ranks (`python -m chip_smoke --sp-rank R
+    --sp-port P`): all share the card over gloo; writes its figures to
+    LOG_DIR/sp<R>.json."""
+    import datetime
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from pccl_tpu_torch.models import gpt, llama
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import hashing
+    from pccl_tpu_torch.ops.quantized_collectives import quantized_pmean
+    from pccl_tpu_torch.ops.ring_attention import make_ring_attn_fn
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import train as train_lib
+    from pccl_tpu_torch.parallel.hierarchical import local_mean
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=SP["ranks"],
+                            timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        # ---- the main path: GPT-2 124M train steps over 4 sp ranks
+        mesh = mesh_lib.make_mesh(("dp", "sp"), (1, SP["ranks"]), backend="gloo")
+        B, T = SP["batch"], SP["block"]
+        cfg = gpt.named_config(SP["model"], block_size=T)
+        state = train_lib.make_train_state(0, cfg, dev)
+        gen = torch.Generator().manual_seed(13)
+        batches = [tuple(torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+                         for _ in range(2)) for _ in range(SP["steps"])]
+        ref = _reference(cfg, state, *batches[0]) if rank == 0 else None
+        step = train_lib.build_train_step(cfg, attn_fn=make_ring_attn_fn(mesh, "sp"),
+                                          mesh=mesh, seq_axis="sp")
+        ring = mesh.ring("sp")
+        dist.barrier()
+        fa.reset_launch_counts()
+        hashing.reset_launch_counts()
+        rows = []
+        for i, (tok, tgt) in enumerate(batches):
+            torch.cuda.synchronize()
+            hop0, stage0, bytes0 = ring.seconds, ring.stage_seconds, ring.bytes
+            t0 = time.perf_counter()
+            loss = step(state, tok, tgt).item()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            row = {"loss": loss, "step_s": step_s, "tok_s": B * T / step_s,
+                   "hop_s": ring.seconds - hop0, "stage_s": ring.stage_seconds - stage0,
+                   "hop_bytes": ring.bytes - bytes0}
+            if ref is not None and i == 0:
+                row.update(_against_reference(state, ref))
+            row["digest"] = " ".join(
+                f"{hashing.torch_simplehash_device(state.params[n].detach()):016x}"
+                for n in sorted(state.params))
+            rows.append(row)
+        out["steps"] = rows
+        out["launches"] = {**fa.launches, **hashing.launches}
+        del state, step, batches, ref
+        torch.cuda.empty_cache()
+
+        # ---- GQA: Llama-700m widths, 2 layers, a 2 x 2 (dp, sp) mesh
+        gq = SP_GQA
+        gmesh = mesh_lib.make_mesh(("dp", "sp"), gq["mesh"], backend="gloo")
+        gcfg = llama.named_config(gq["model"], n_layer=gq["n_layer"],
+                                  block_size=gq["block"])
+        gstate = train_lib.make_train_state(0, gcfg, dev)
+        gen = torch.Generator().manual_seed(17)
+        tok, tgt = (torch.randint(0, gcfg.vocab_size, (gq["batch"], gq["block"]),
+                                  generator=gen).to(dev) for _ in range(2))
+        gref = _reference(gcfg, gstate, tok, tgt) if rank == 0 else None
+        dist.barrier()
+        fa.reset_launch_counts()
+        loss = train_lib.build_loss_and_grad(
+            gcfg, attn_fn=make_ring_attn_fn(gmesh, "sp"), mesh=gmesh,
+            seq_axis="sp")(gstate, tok, tgt).item()
+        out["gqa"] = {"loss": loss, "launches": dict(fa.launches)}
+        if gref is not None:
+            out["gqa"].update(_against_reference(gstate, gref))
+        del gstate, gref
+        torch.cuda.empty_cache()
+
+        # ---- the quantized ring and local_mean at GPT-2's parameter count
+        n = GPT2_PARAM_BYTES // 4
+        group = mesh.group("sp")
+        xs = [torch.randn(n, device=dev, generator=torch.Generator(dev).manual_seed(100 + r))
+              for r in range(SP["ranks"])]
+        total = xs[0] + xs[1] + xs[2] + xs[3]
+        for name, fn in (("qring", lambda: quantized_pmean(
+                             {"x": xs[rank]}, group, block=QRING_BLOCK)),
+                         ("local_mean", lambda: local_mean({"x": xs[rank]}, mesh, "sp"))):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()["x"]
+            torch.cuda.synchronize()
+            out[name] = {"s": time.perf_counter() - t0,
+                         "blake2b": hashlib.blake2b(got.cpu().numpy().tobytes(),
+                                                    digest_size=16).hexdigest()}
+            if name == "qring":
+                # the JAX test's bound, on the sum: 16 int8 steps of max|x|
+                out[name].update(
+                    err=(got * SP["ranks"] - total).abs().max().item(),
+                    bound=16 * max(x.abs().max().item() for x in xs) / 127)
+            else:
+                out[name]["allclose"] = bool(torch.allclose(
+                    got, total / SP["ranks"], rtol=1e-5, atol=1e-6))
+                out[name]["max_abs_err"] = (got - total / SP["ranks"]).abs().max().item()
+    finally:
+        (LOG_DIR / f"sp{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def phase_sp() -> dict:
+    """Four ranks on the card, one process each over gloo (sp_rank):
+    GPT-2 124M sequence-parallel train steps with ring attention, a GQA
+    loss-and-grad on a dp x sp mesh, the quantized ring and local_mean;
+    returns the main path's launch totals."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    port, = free_ports(1)
+    ranks = range(SP["ranks"])
+    names = [f"sp{r}.log" for r in ranks]
+    for r in ranks:
+        (LOG_DIR / f"sp{r}.json").unlink(missing_ok=True)
+    procs, files = [], []
+    try:
+        for r in ranks:
+            spawn(procs, files, env, names[r],
+                  ["chip_smoke", "--sp-rank", str(r), "--sp-port", str(port)])
+        # a rank that fails leaves the others waiting in gloo: stop at once
+        deadline = time.time() + SP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                raise SmokeError(f"13: sp ranks still running after {SP_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            stop(p)
+        for f in files:
+            f.close()
+        dump_logs(names[:len(procs)])
+    res = []
+    for r, p in zip(ranks, procs):
+        path = LOG_DIR / f"sp{r}.json"
+        if p.returncode != 0 or not path.exists():
+            raise SmokeError(f"13: sp rank {r} exited {p.returncode}")
+        res.append(json.loads(path.read_text()))
+    return check_sp(res)
+
+
+def _each(spec: str, values) -> str:
+    return " ".join(spec.format(v) for v in values)
+
+
+def check_sp(res: list) -> dict:
+    """Phase 13's checks over the ranks' figures; returns the main path's
+    launch totals."""
+    from pccl_tpu_torch.models import gpt
+
+    cfg = gpt.named_config(SP["model"])
+    n, L = SP["ranks"], cfg.n_layer
+    r0 = res[0]
+    for i in range(SP["steps"]):
+        rows = [r["steps"][i] for r in res]
+        if len({row["loss"] for row in rows}) != 1 or not math.isfinite(rows[0]["loss"]):
+            raise SmokeError(f"13: step {i}: losses {[row['loss'] for row in rows]}")
+        if len({row["digest"] for row in rows}) != 1:
+            raise SmokeError(f"13: step {i}: H1 digests of the parameters differ "
+                             f"across the ranks")
+        log(f"  sp step {i}: loss {rows[0]['loss']:.5f}, tok/s (global tokens) "
+            f"{_each('{:.0f}', [x['tok_s'] for x in rows])}, step s "
+            f"{_each('{:.3f}', [x['step_s'] for x in rows])}, hop share "
+            f"{_each('{:.3f}', [x['hop_s'] / x['step_s'] for x in rows])} (of it "
+            f"D2H/H2D staging {_each('{:.3f}', [x['stage_s'] / x['step_s'] for x in rows])}; "
+            f"{rows[0]['hop_bytes']} bytes sent a rank); H1 digests equal")
+    first = r0["steps"][0]
+    gap = abs(first["loss"] - first["ref_loss"])
+    log(f"  sp vs the full-sequence reference (T={SP['block']}): loss "
+        f"{first['loss']:.6f} vs {first['ref_loss']:.6f} (gap {gap:.2e}), "
+        f"gradient cosine {first['cosine']:.7f}")
+    # phase 4's limits
+    if not (gap <= 1e-3 and first["cosine"] >= 0.9998):
+        raise SmokeError("13: the sp step disagrees with the full-sequence step")
+    # a hop moves K and V, [B, T/n, H, Dh] bf16 each; n - 1 hops a layer
+    # in the forward and as many in the backward
+    hop_bytes = 2 * (n - 1) * L * 2 * SP["batch"] * SP["block"] // n \
+        * cfg.n_embd * 2
+    if any(r["steps"][i]["hop_bytes"] != hop_bytes
+           for r in res for i in range(SP["steps"])):
+        raise SmokeError(f"13: a rank's hops sent other than {hop_bytes} bytes "
+                         f"a step")
+    want = SP["steps"] * L * n
+    for r in res:
+        got = [r["launches"][k] for k in FLASH]
+        if got != [want] * 3 or r["launches"]["simplehash_tpu"] <= 0:
+            raise SmokeError(f"13: rank {r['rank']} launched {r['launches']}, "
+                             f"K1-K3 {want} each expected ({SP['steps']} steps x "
+                             f"{L} layers x {n} ring steps)")
+    log(f"  sp launches per rank: {[r['launches'] for r in res]}")
+
+    g = r0["gqa"]
+    gap = abs(g["loss"] - g["ref_loss"])
+    gl = SP_GQA["n_layer"]
+    log(f"  GQA (Llama-700m widths, {gl} layers, dp x sp {SP_GQA['mesh']}): loss "
+        f"{g['loss']:.6f} vs {g['ref_loss']:.6f} (gap {gap:.2e}), gradient "
+        f"cosine {g['cosine']:.7f}; launches {[r['gqa']['launches'] for r in res]}")
+    if not (gap <= 1e-3 and g["cosine"] >= 0.9998):
+        raise SmokeError("13: the GQA sp loss-and-grad disagrees with its reference")
+    for r in res:
+        if [r["gqa"]["launches"][k] for k in FLASH] != [gl * SP_GQA["mesh"][1]] * 3:
+            raise SmokeError(f"13: rank {r['rank']}'s GQA launches {r['gqa']['launches']}")
+
+    q = [r["qring"] for r in res]
+    if len({x["blake2b"] for x in q}) != 1:
+        raise SmokeError("13: the quantized ring's results differ across the ranks")
+    if any(x["err"] > x["bound"] for x in q):
+        raise SmokeError(f"13: quantized ring error {[x['err'] for x in q]} over "
+                         f"its bound {q[0]['bound']}")
+    lm = [r["local_mean"] for r in res]
+    if not all(x["allclose"] for x in lm):
+        raise SmokeError(f"13: local_mean off the fp32 mean by "
+                         f"{[x['max_abs_err'] for x in lm]}")
+    # each of the 2(n - 1) hops carries a chunk of int8 codes and its scales
+    chunk = -(-(GPT2_PARAM_BYTES // 4) // (n * QRING_BLOCK)) * QRING_BLOCK
+    qbytes = 2 * (n - 1) * (chunk + 4 * chunk // QRING_BLOCK)
+    log(f"  quantized_pmean of {GPT2_PARAM_BYTES // 4} fp32 over {n} ranks: s "
+        f"{_each('{:.3f}', [x['s'] for x in q])}, bytes sent a rank {qbytes} "
+        f"in {2 * (n - 1)} hops, error of the sum {max(x['err'] for x in q):.4g} "
+        f"(bound {q[0]['bound']:.4g}), bitwise equal on every rank")
+    log(f"  local_mean of the same vector: s "
+        f"{_each('{:.3f}', [x['s'] for x in lm])}, max |err| "
+        f"{max(x['max_abs_err'] for x in lm):.3g}, results "
+        f"{'bitwise equal' if len({x['blake2b'] for x in lm}) == 1 else 'NOT bitwise equal'}"
+        f" across the ranks")
+    totals = {k: sum(r["launches"][k] for r in res) for k in (*FLASH, "simplehash_tpu")}
+    log(f"sp path: {n} ranks on one card over gloo, losses and H1 digests equal "
+        f"at every step; launches {totals}")
+    return {"launches": totals, "ranks": res}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1707,6 +2081,7 @@ def main() -> int:
 
     timed("build", phase_build)
     kres = timed("kernels", phase_kernels)
+    lres = timed("with_lse", phase_with_lse)
     hres = timed("hash", phase_hash)
     timed("model", phase_model)
     # each main path runs in its peer processes, whose counts start at 0;
@@ -1733,7 +2108,9 @@ def main() -> int:
     # phase 12 runs in this process and sets H1's count to 0 itself just
     # before its peers start
     comm = timed("comm", phase_comm)
-    paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm)
+    # phase 13's ranks are processes of their own, whose counts start at 0
+    sp = timed("sp", phase_sp)
+    paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -1751,9 +2128,14 @@ def main() -> int:
                     "bound_ms": r["bounds"][name][0], "bound_by": r["bounds"][name][1],
                     "library_ms": r["library_ms"][name]}
 
-            # times at the GPT-2 paths' shape, and at phase 7's beside them
+            # times at the GPT-2 paths' shape, and at phase 7's and phase
+            # 13's non-causal ring step beside them
             row.update(at(m))
             row["llama700m"] = at(ll)
+            row["sp"] = at(kres["sp"])
+            # through flash_attention_with_lse with an lse cotangent (3a)
+            row["with_lse_max_abs_err"] = max(
+                e[o]["max_abs"] for e in lres.values() for o in out_names[name])
             row["ok"] = all(r["ok"] for r in kres.values())
         else:   # H1, times at tok_emb; the error over phase 3b's cases,
             # whose digests were compared exactly; no library call
@@ -1772,6 +2154,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--sp-rank" in sys.argv:  # one of phase 13's ranks
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--sp-rank", type=int, required=True)
+        ap.add_argument("--sp-port", type=int, required=True)
+        a = ap.parse_args()
+        sp_rank(a.sp_rank, a.sp_port)
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeError as e:

@@ -98,14 +98,17 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     return (y * gain).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding over the last dim of x [B, T, H, Dh]: the first and
-    second halves rotate as pairs."""
+def _rope(x: torch.Tensor, theta: float, pos_offset: int = 0) -> torch.Tensor:
+    """Rotary embedding over the last dim of x [B, T, H, Dh] at positions
+    pos_offset .. pos_offset + T - 1 (a rank's block of a sequence split
+    over ranks starts at its global offset): the first and second halves
+    rotate as pairs."""
     _, T, _, Dh = x.shape
     half = Dh // 2
     freqs = torch.exp(-math.log(theta)
                       * torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    ang = torch.arange(T, dtype=torch.float32, device=x.device)[:, None] * freqs[None, :]
+    pos = torch.arange(pos_offset, pos_offset + T, dtype=torch.float32, device=x.device)
+    ang = pos[:, None] * freqs[None, :]
     cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
@@ -123,14 +126,14 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None):
+def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None, pos_offset=0):
     B, T, d = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
     h = _rmsnorm(x, params["ln1_g"][layer])
     qkv = h @ params["attn_qkv"][layer].to(h.dtype)
     q, k, v = qkv.split(d, dim=-1)
-    q = _rope(q.reshape(B, T, H, Dh), cfg.rope_theta)
-    k = _rope(k.reshape(B, T, H, Dh), cfg.rope_theta)
+    q = _rope(q.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
+    k = _rope(k.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, H, Dh)
     att = (attn_fn or _attention)(q, k, v).reshape(B, T, d)
     x = x + att @ params["attn_out"][layer].to(att.dtype)
@@ -139,10 +142,13 @@ def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None):
     return x + h @ params["mlp_out"][layer].to(h.dtype)
 
 
-def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False):
-    """tokens int [B, T] -> final-norm hidden states [B, T, d]."""
+def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
+           pos_offset: int = 0):
+    """tokens int [B, T] at global positions pos_offset.. -> final-norm
+    hidden states [B, T, d]."""
     x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
-    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn),
+    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
+                                           pos_offset),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 
@@ -152,25 +158,29 @@ def _head_mat(params, cfg: GPTConfig) -> torch.Tensor:
     return params["head"] if cfg.untie_head else params["tok_emb"].t()
 
 
-def forward(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False):
+def forward(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
+            pos_offset: int = 0):
     """tokens int [B, T] -> logits fp32 [B, T, vocab]. attn_fn overrides the
-    attention op (e.g. ops.flash_attention); remat checkpoints each block."""
-    x = hidden(params, tokens, cfg, attn_fn, remat)
+    attention op (e.g. ops.flash_attention); remat checkpoints each block;
+    pos_offset is the global position of the first token."""
+    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
     return matmul_f32(x, _head_mat(params, cfg))
 
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, attn_fn=None,
-            remat=False, loss_chunk: "int | None" = None) -> torch.Tensor:
+            remat=False, loss_chunk: "int | None" = None,
+            pos_offset: int = 0) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T."""
+    divide T; pos_offset as in forward."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
     if loss_chunk and T > loss_chunk:
-        x = hidden(params, tokens, cfg, attn_fn, remat)
+        x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
         return chunked_ce_loss(x, _head_mat(params, cfg), targets, loss_chunk)
-    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat), targets)
+    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat, pos_offset),
+                          targets)
 
 
 def tiny_config(**overrides) -> GPTConfig:

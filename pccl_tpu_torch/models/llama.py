@@ -114,14 +114,14 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None):
+def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None, pos_offset=0):
     B, T, d = x.shape
     H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     h = _rmsnorm(x, params["ln1_g"][layer])
     q = (h @ params["attn_q"][layer].to(h.dtype)).reshape(B, T, H, Dh)
     k, v = (h @ params["attn_kv"][layer].to(h.dtype)).chunk(2, dim=-1)
-    q = _rope(q, cfg.rope_theta)
-    k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta)
+    q = _rope(q, cfg.rope_theta, pos_offset)
+    k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, Hkv, Dh)
     att = (attn_fn or _attention)(q, k, v).reshape(B, T, d)
     x = x + att @ params["attn_out"][layer].to(att.dtype)
@@ -131,32 +131,40 @@ def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None):
     return x + gated @ params["mlp_down"][layer].to(h.dtype)
 
 
-def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False):
-    """tokens int [B, T] -> final-norm hidden states [B, T, d]."""
+def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
+           pos_offset: int = 0):
+    """tokens int [B, T] at global positions pos_offset.. -> final-norm
+    hidden states [B, T, d]."""
     x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
-    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn),
+    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
+                                           pos_offset),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 
 
-def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False):
+def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
+            pos_offset: int = 0):
     """tokens int [B, T] -> logits fp32 [B, T, vocab]: the untied head with
-    compute-dtype operands and fp32 accumulation."""
-    return matmul_f32(hidden(params, tokens, cfg, attn_fn, remat), params["head"])
+    compute-dtype operands and fp32 accumulation. pos_offset is the global
+    position of the first token."""
+    return matmul_f32(hidden(params, tokens, cfg, attn_fn, remat, pos_offset),
+                      params["head"])
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None,
-            remat=False, loss_chunk: "int | None" = None) -> torch.Tensor:
+            remat=False, loss_chunk: "int | None" = None,
+            pos_offset: int = 0) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T."""
+    divide T; pos_offset as in forward."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
     if loss_chunk and T > loss_chunk:
-        x = hidden(params, tokens, cfg, attn_fn, remat)
+        x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
         return chunked_ce_loss(x, params["head"], targets, loss_chunk)
-    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat), targets)
+    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat, pos_offset),
+                          targets)
 
 
 def tiny_config(**overrides) -> LlamaConfig:

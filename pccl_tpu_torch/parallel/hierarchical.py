@@ -21,18 +21,45 @@ left, per all_reduce:
 Shm staging applies only without quantization, as in the JAX package: a
 quantized ring sends from its quantize scratch, not from the stage.
 `comm=None` is the identity, so one loop runs alone or in a group.
+
+`local_mean` is the intra-node hop for a peer of several cards, one rank
+each, over torch.distributed (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from ..comm import Communicator, DataType, QuantizationAlgorithm, shm_ndarray
 from .codec import build_codec
 from .ring import avg_all_reduce_windowed
+
+
+def local_mean(tree: Any, mesh, axis: Union[str, Sequence[str]] = "dp") -> Any:
+    """The mean of each tensor of `tree` over the ranks of a mesh axis (or
+    of several axes together), the same on every rank
+    (pccl_tpu/parallel/hierarchical.py:local_mean).
+
+    In JAX one program holds every device's value, stacked along each
+    leaf's leading dim ([n·k, ...] -> [k, ...]); here each rank holds its
+    own [k, ...] and gets the [k, ...] mean back: a SUM all_reduce over
+    the axes' group, divided by its n ranks, as JAX's psum / n. New
+    tensors; the inputs are left as they are."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    group, n = mesh.group(*axes), math.prod(mesh.size(a) for a in axes)
+
+    def mean(x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x.div_(n)
+
+    return pytree.tree_map(mean, tree)
 
 
 class HierarchicalAllReduce:

@@ -11,6 +11,10 @@ moments across outer steps as the JAX loop does.
 
 DDP averages the gradients between the backward and the update, so the
 step is also offered as its two halves, `build_loss_and_grad` and `apply`.
+With a mesh of ranks (parallel/mesh.py) the step is the JAX package's
+sharded one read per rank: each rank takes its block of the global batch
+(B over "dp", T over `seq_axis`, whose attention is then ring attention),
+and the gradients are averaged over those ranks before the update.
 `opt_state_leaves` puts AdamW's state in optax's leaf order, the shared
 state a DDP peer offers and a late joiner adopts.
 """
@@ -25,6 +29,9 @@ import torch
 
 from .._device import resolve_device
 from ..models import gpt, llama
+from .codec import build_codec
+from .hierarchical import local_mean
+from .mesh import local_batch
 
 
 def family(cfg):
@@ -115,26 +122,69 @@ def accum_value_and_grad(base_lg, accum_steps: int):
     return fn
 
 
+def _data_axes(mesh, seq_axis, attn_fn) -> tuple:
+    """The mesh axes the batch is split over; raises where the step would
+    compute another function than the unsplit step."""
+    if seq_axis is not None:
+        if seq_axis not in mesh.shape:
+            raise ValueError(f"seq_axis {seq_axis!r} is not an axis of the "
+                             f"mesh {mesh.shape}")
+        if mesh.size(seq_axis) > 1 and \
+                getattr(attn_fn, "ring_axis", None) != seq_axis:
+            raise ValueError(f"a sequence split over {seq_axis!r} needs "
+                             f"attn_fn=make_ring_attn_fn(mesh, {seq_axis!r})")
+    return tuple(a for a in mesh.axis_names if a in ("dp", seq_axis))
+
+
+def _mean_over(state: TrainState, loss, mesh, axes) -> torch.Tensor:
+    """Replace each gradient by its mean over the ranks of `axes`, and
+    return the mean loss: one local_mean of the gradients, flattened in
+    the codec's leaf order with the loss at the end. Every rank gets the
+    same bytes, so replicated parameters stay bitwise equal."""
+    if not axes:
+        return loss
+    grads = {name: p.grad for name, p in state.params.items()}
+    codec = build_codec(grads)
+    vec = torch.empty(codec.count + 1, dtype=torch.float32, device=loss.device)
+    codec.flat_into(grads, vec[:-1])
+    vec[-1] = loss
+    vec = local_mean(vec, mesh, axes)
+    codec.unflat_into(vec[:-1], grads)
+    return vec[-1].clone()
+
+
 def build_loss_and_grad(cfg, attn_fn=None, remat=False,
-                        loss_chunk: "int | None" = None, accum_steps: int = 1):
+                        loss_chunk: "int | None" = None, accum_steps: int = 1,
+                        mesh=None, seq_axis: "str | None" = None):
     """Returns loss_and_grad(state, tokens, targets) -> loss (a detached
     0-d tensor, not synchronised), leaving the gradients in each
-    parameter's `.grad`. attn_fn, remat, loss_chunk and accum_steps as in
-    build_train_step."""
+    parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh and
+    seq_axis as in build_train_step."""
     model = family(cfg)
 
-    def micro(state: TrainState, tokens, targets):
-        loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn, remat,
-                             loss_chunk)
-        loss.backward()
-        return loss.detach()
+    def run(state: TrainState, tokens, targets, pos_offset: int = 0):
+        def micro(state: TrainState, tokens, targets):
+            loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn,
+                                 remat, loss_chunk, pos_offset)
+            loss.backward()
+            return loss.detach()
 
-    if accum_steps > 1:
-        return accum_value_and_grad(micro, accum_steps)
-
-    def loss_and_grad(state: TrainState, tokens, targets):
+        if accum_steps > 1:
+            return accum_value_and_grad(micro, accum_steps)(state, tokens, targets)
         state.optimizer.zero_grad(set_to_none=True)
         return micro(state, tokens, targets)
+
+    if mesh is None:
+        if seq_axis is not None:
+            raise ValueError("seq_axis needs a mesh")
+        return run
+    axes = _data_axes(mesh, seq_axis, attn_fn)
+
+    def loss_and_grad(state: TrainState, tokens, targets):
+        tokens, pos_offset = local_batch(tokens, mesh, seq_axis)
+        targets, _ = local_batch(targets, mesh, seq_axis)
+        return _mean_over(state, run(state, tokens, targets, pos_offset),
+                          mesh, axes)
 
     return loss_and_grad
 
@@ -148,7 +198,8 @@ def apply(state: TrainState) -> None:
 
 
 def build_train_step(cfg, attn_fn=None, remat=False,
-                     loss_chunk: "int | None" = None, accum_steps: int = 1):
+                     loss_chunk: "int | None" = None, accum_steps: int = 1,
+                     mesh=None, seq_axis: "str | None" = None):
     """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
     not synchronised): build_loss_and_grad, then apply. attn_fn: the
     attention op (e.g. ops.flash_attention); remat: checkpointing, False,
@@ -156,9 +207,19 @@ def build_train_step(cfg, attn_fn=None, remat=False,
     head and loss in checkpointed sequence chunks; accum_steps: with A > 1
     the step takes tokens and targets [A, B, T] and accumulates the
     gradients of the A microbatches (accum_value_and_grad) before one
-    update."""
+    update.
+
+    mesh (parallel/mesh.Mesh), on every rank of it: the step takes the
+    global batch, runs this rank's block of it (local_batch: B over "dp",
+    T over seq_axis at its global positions; attn_fn must then be
+    ops.ring_attention.make_ring_attn_fn(mesh, seq_axis)), averages the
+    gradients over the ranks of those axes and returns their mean loss
+    (pccl_tpu/parallel/train.py:build_train_step with seq_axis). Every
+    rank starts from the same parameters and keeps them bitwise equal.
+    Under remat the backward replays a block's ring hops, in the same order
+    on every rank."""
     loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk,
-                                        accum_steps)
+                                        accum_steps, mesh, seq_axis)
 
     def step(state: TrainState, tokens, targets):
         loss = loss_and_grad(state, tokens, targets)
