@@ -16,8 +16,11 @@ Phases, in order; any failure exits non-zero:
 3. kernels: K1 (forward), K2 (dq) and K3 (dk, dv) against their plain
    PyTorch versions (fp32 on the same bf16 inputs) at the shapes of
    SHAPES: the main path's, a GQA shape at head dim 128, a ragged
-   non-causal shape, phase 7's Llama-700m shape and phase 13's ring
-   steps (causal and not, and at Dh 128 with GQA);
+   non-causal shape, phase 7's Llama-700m shape, phase 13's ring
+   steps (causal and not, and at Dh 128 with GQA), phase 14's tp
+   ranks' blocks (Llama-700m at tp=4: 3 q heads over 1 kv head; GPT-2 at
+   tp=2: 6 heads, at B=8 and at the (2, 2) mesh's B=2) and phase 15's
+   pipeline stages (one GPT-2 sequence);
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
@@ -126,6 +129,48 @@ Phases, in order; any failure exits non-zero:
    Logs each step's tok/s over the global tokens, the share of the step
    spent in hops (and in their D2H/H2D staging), and the collectives'
    seconds and bytes.
+14. tensor parallelism: four rank processes on the card in one gloo world
+   (`python -m chip_smoke --par-rank R --par-port P`, which go on to
+   phases 15 and 16): Llama-700m at (dp, tp) = (1, 4), B=2, T=2048, 3
+   AdamW steps of train.build_loss_and_grad(mesh=) + apply on each rank's
+   blocks (K1-K3 at 3 q heads over 1 kv head). First, from the initial
+   parameters, the tp loss-and-grad on each of the 3 batches, and rank 0
+   the unsharded one in bf16 and in fp32 (dense attention): the loss must
+   agree with the bf16 one within 1e-3 nats, and, since two bf16 steps of
+   Llama-700m's 24 layers differ by more than phase 4's cosine, the
+   gathered gradient's distance from the bf16 step is held to the bf16
+   step's own rounding: (1 - cos(tp, bf16)) / (1 - cos(bf16, fp32)) <=
+   TP_RATIO_LIMIT. A control reads each batch again with each rank's
+   row-parallel partial rounded to bf16 before the sum (the fault the
+   port's fp32 sum avoids) and must read above the limit. Then the
+   steps: the losses and the H1 digests of the replicated gains must be
+   equal on all ranks after every step; K1-K3 launch 3 x 24 times a rank.
+   Then GPT-2 widths at 2 layers on a (2, 2) (dp, tp) mesh, B=4, T=1024,
+   with the tied vocab-parallel head, one loss-and-grad under phase 4's
+   limits against the unsharded bf16 one (loss gap <= 1e-3, cosine >=
+   0.9998).
+   Logs tok/s over the global tokens and the share of the step in the tp
+   collectives (their calls and bytes);
+15. pipeline: GPT-2 124M over 4 stages (3 layers each), B=8, T=1024, M=8
+   microbatches, two forward-backward runs; the CE of the pipelined
+   logits within 1e-3 nats of rank 0's gpt.forward, gradient cosine >=
+   0.9998 over every parameter (layers gathered from the stages); K1-K3
+   launch 3 x 11 times a stage a run. Logs step and hop seconds, hop bytes
+   and the bubble share (S-1)/(M+S-1);
+16. MoE at GPT-2 widths (d=768, d_ff=3072), E=8 over 4 expert ranks, x
+   [8, 1024, 768]: at capacity_factor E every token's (expert, slot)
+   equals rank 0's moe_mlp_dense routing (the dense slot is the shard's
+   plus the earlier shards' counts) and the output is within 2e-2 of it;
+   at 1.0 finite outputs, the dropped share, and sum(out²)'s gradient
+   non-zero at the gate and w_in on every rank. Logs the all_to_all
+   seconds and bytes;
+17. `train_ddp --tp 2`: two GPT-2 124M peers, each a tp group of 2 ranks
+   (the peer's process and the rank it spawns), and a master (B=8,
+   T=1024, 16 steps, PCCLT_SS_HASH=simple-tpu). The peers' digests must
+   agree at every step, every sync after the first move 0 bytes, the
+   final params_blake2b agree and the loss fall; every rank of each peer
+   must launch K1-K3 at every step (rank 0 gathers the counts); logs
+   ring_s, sync_s and gather_s.
 
 Every peer's FINAL line reports its own peak host RSS: each is started
 through a relay that forks it (utils/rss.relay_argv): a user-space kernel
@@ -190,6 +235,14 @@ SHAPES = [
     ("sp", dict(B=2, T=1024, H=12, Hkv=12, D=64, causal=False)),
     ("sp_causal", dict(B=2, T=1024, H=12, Hkv=12, D=64, causal=True)),
     ("sp_gqa", dict(B=1, T=2048, H=12, Hkv=4, D=128, causal=False)),
+    # phase 14's tp ranks: Llama-700m at tp=4 (3 q heads over 1 kv head a
+    # rank) and GPT-2 at tp=2
+    ("tp", dict(B=2, T=2048, H=3, Hkv=1, D=128, causal=True)),
+    ("tp_gpt", dict(B=8, T=1024, H=6, Hkv=6, D=64, causal=True)),
+    # phase 14's GPT-2 check on the (2, 2) (dp, tp) mesh, and phase 15's
+    # pipeline stages (a microbatch of one GPT-2 sequence)
+    ("tp_dp", dict(B=2, T=1024, H=6, Hkv=6, D=64, causal=True)),
+    ("pp", dict(B=1, T=1024, H=12, Hkv=12, D=64, causal=True)),
 ]
 WITH_LSE_SHAPES = ("sp", "sp_causal", "sp_gqa")
 
@@ -699,6 +752,21 @@ def phase_hash() -> dict:
     return res
 
 
+def cosine(a, b) -> float:
+    """The cosine of two tensors taken flat, their products summed in fp64
+    chunk by chunk: an fp32 reduction over hundreds of millions of
+    elements can be off by more than the 2e-4 the checks resolve (on the
+    CPU, cosine_similarity gave 1.0145 for two 700m-width gradients whose
+    cosine is 0.99997)."""
+    dot = na = nb = 0.0
+    for x, y in zip(a.reshape(-1).split(1 << 24), b.reshape(-1).split(1 << 24)):
+        x, y = x.double(), y.double()
+        dot += (x @ y).item()
+        na += (x @ x).item()
+        nb += (y @ y).item()
+    return dot / math.sqrt(na * nb)
+
+
 # ------------------------------------------------------------------ phase 4
 
 def phase_model() -> None:
@@ -722,7 +790,7 @@ def phase_model() -> None:
         grads = torch.autograd.grad(loss, params)
         res[name] = (loss.item(), torch.cat([g.float().reshape(-1) for g in grads]))
     (lf, gf), (ld, gd) = res["flash"], res["dense"]
-    cos = torch.nn.functional.cosine_similarity(gf, gd, dim=0).item()
+    cos = cosine(gf, gd)
     log(f"model (gpt2 widths, 2 layers, bf16): loss flash {lf:.5f} dense {ld:.5f}, "
         f"grad cosine {cos:.6f}")
     # limits at a few times the gap the two bf16 paths show (6e-5 nats and
@@ -1252,8 +1320,7 @@ def phase_remat() -> dict:
             if ref is None:
                 ref = (loss, grads)
             run["loss_gap"] = abs(loss - ref[0])
-            run["cosine"] = torch.nn.functional.cosine_similarity(
-                grads, ref[1], dim=0).item()
+            run["cosine"] = cosine(grads, ref[1])
             run["bitwise"] = torch.equal(grads, ref[1])
             del grads
             runs.append(run)
@@ -1789,11 +1856,8 @@ def _flat_grads(state):
 def _against_reference(state, ref) -> dict:
     """The loss gap and the gradient cosine of this rank's averaged
     gradients against the full-sequence reference (loss, flat gradient)."""
-    import torch
-
     return {"ref_loss": ref[0],
-            "cosine": torch.nn.functional.cosine_similarity(
-                _flat_grads(state), ref[1], dim=0).item()}
+            "cosine": cosine(_flat_grads(state), ref[1])}
 
 
 def _reference(cfg, state, tokens, targets):
@@ -1929,39 +1993,7 @@ def phase_sp() -> dict:
     GPT-2 124M sequence-parallel train steps with ring attention, a GQA
     loss-and-grad on a dp x sp mesh, the quantized ring and local_mean;
     returns the main path's launch totals."""
-    LOG_DIR.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
-    port, = free_ports(1)
-    ranks = range(SP["ranks"])
-    names = [f"sp{r}.log" for r in ranks]
-    for r in ranks:
-        (LOG_DIR / f"sp{r}.json").unlink(missing_ok=True)
-    procs, files = [], []
-    try:
-        for r in ranks:
-            spawn(procs, files, env, names[r],
-                  ["chip_smoke", "--sp-rank", str(r), "--sp-port", str(port)])
-        # a rank that fails leaves the others waiting in gloo: stop at once
-        deadline = time.time() + SP_TIMEOUT_S
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode not in (None, 0) for p in procs):
-                break
-            if time.time() > deadline:
-                raise SmokeError(f"13: sp ranks still running after {SP_TIMEOUT_S} s")
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            stop(p)
-        for f in files:
-            f.close()
-        dump_logs(names[:len(procs)])
-    res = []
-    for r, p in zip(ranks, procs):
-        path = LOG_DIR / f"sp{r}.json"
-        if p.returncode != 0 or not path.exists():
-            raise SmokeError(f"13: sp rank {r} exited {p.returncode}")
-        res.append(json.loads(path.read_text()))
-    return check_sp(res)
+    return check_sp(run_ranks("sp", "sp", SP["ranks"], SP_TIMEOUT_S))
 
 
 def _each(spec: str, values) -> str:
@@ -2054,6 +2086,582 @@ def check_sp(res: list) -> dict:
     return {"launches": totals, "ranks": res}
 
 
+# ------------------------------------------------------------ phases 14-16
+
+# "over": overrides of the preset's config (its depth only, here)
+TP = dict(model="700m", over={}, batch=2, block=2048, steps=3, mesh=(1, 4))
+TP_GPT = dict(model="gpt2", over=dict(n_layer=2), batch=4, block=1024, mesh=(2, 2))
+PP = dict(model="gpt2", over={}, batch=8, block=1024, stages=4, microbatches=8,
+          runs=2)
+MOE = dict(d=768, f=3072, experts=8, batch=8, block=1024, ep=4)
+# Phase 14's Llama-700m check. The unsharded bf16 step is itself only
+# 0.99954-0.99961 (cosine) from the fp32 step at 24 layers (NVIDIA H100
+# 80GB HBM3, PERF.md §6), so phase 4's fixed 0.9998 does not fit it.
+# The tp step's gradient distance from the bf16 step is held to that
+# rounding instead: (1 - cos(tp, bf16)) / (1 - cos(bf16, fp32)) <= this,
+# at each batch read. A sound tp step repeats the bf16 step's roundings
+# but for the order of its fp32 sums, and read 0.600-0.633; with each
+# rank's row-parallel partial rounded to bf16 (_bf16_partials) it read
+# 0.861. Its distance to the fp32 step cannot tell them apart (0.963-1.019
+# against 1.041).
+TP_RATIO_LIMIT = 0.75
+PAR_RANKS = 4
+PAR_TIMEOUT_S = 480
+GAINS = ("ln1_g", "ln2_g", "lnf_g")
+
+
+def _flat(tensors: dict):
+    import torch
+
+    return torch.cat([tensors[n].float().reshape(-1) for n in sorted(tensors)])
+
+
+def _exact_reference(cfg, params, tokens, targets):
+    """The unsharded loss and flat gradient in fp32 compute (dense
+    attention, each block checkpointed to bound its memory) at `params`:
+    the function the bf16 steps approximate."""
+    import dataclasses
+
+    import torch
+
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    state = train_lib.make_train_state(0, cfg32, tokens.device, params={
+        k: v.detach() for k, v in params.items()})
+    loss = train_lib.build_loss_and_grad(cfg32, remat=True)(state, tokens,
+                                                           targets).item()
+    grads = _flat_grads(state)
+    del state
+    return loss, grads
+
+
+def _bf16_partials(x, w, tp=None):
+    """The fault phase 14's control plants in place of
+    models/_common.row_parallel: each rank's partial product rounded to
+    the compute dtype before the sum, where the port sums fp32 partials
+    and rounds once."""
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+
+    if tp is None:
+        return x @ w.to(x.dtype)
+    return mesh_lib.reduce_from((x @ w.to(x.dtype)).float(), tp).to(x.dtype)
+
+
+def _tp_readings(rank, cfg, mod, full, state, shards, lg, batches, exact):
+    """The tp loss-and-grad on each batch from the same initial parameters,
+    its gradient gathered to rank 0 and held there against the unsharded
+    bf16 step of `full` (a one-process state) and, with `exact`, the fp32
+    step; with `exact`, each batch once more with _bf16_partials planted
+    as the model's row_parallel (the control). Returns the rows (on rank
+    0; [] elsewhere) and the launches of the tp calls alone (the counts
+    set to 0 just before each and read just after it)."""
+    import torch
+
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import hashing
+
+    rows, launches = [], {}
+    runs = [(b, f) for b in batches for f in ((False, True) if exact else (False,))]
+    ref = ex = None
+    for (tok, tgt), fault in runs:
+        if rank == 0 and not fault:
+            ref = ex = None     # the previous batch's, freed first
+            ref = _reference(cfg, full, tok, tgt)
+            ex = _exact_reference(cfg, full.params, tok, tgt) if exact else None
+        plain = mod.row_parallel
+        mod.row_parallel = _bf16_partials if fault else plain
+        fa.reset_launch_counts()
+        hashing.reset_launch_counts()
+        try:
+            loss = lg(state, tok, tgt).item()
+        finally:
+            mod.row_parallel = plain
+        for k, n in {**fa.launches, **hashing.launches}.items():
+            launches[k] = launches.get(k, 0) + n
+        grads = shards.gather({n: p.grad for n, p in state.params.items()}, dst=0)
+        state.optimizer.zero_grad(set_to_none=True)
+        if rank == 0:
+            flat = _flat(grads)
+            row = {"fault": fault, "loss": loss, "ref_loss": ref[0],
+                   "cosine": cosine(flat, ref[1])}
+            if exact:
+                row.update(exact_loss=ex[0], cosine_exact=cosine(flat, ex[1]),
+                           ref_cosine_exact=cosine(ref[1], ex[1]))
+            rows.append(row)
+            del flat
+        del grads
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _tp_part(rank: int, dev) -> dict:
+    """Phase 14 on one rank: Llama-700m at (dp, tp) = (1, 4), its readings
+    against the unsharded steps, then its train steps; then a GPT-2
+    loss-and-grad at (2, 2)."""
+    import torch
+    import torch.distributed as dist
+
+    from pccl_tpu_torch.models import gpt, llama
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import hashing
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    out = {}
+    for tag, spec, mod in (("llama", TP, llama), ("gpt", TP_GPT, gpt)):
+        mesh = mesh_lib.make_mesh(("dp", "tp"), spec["mesh"], backend="gloo")
+        B, T = spec["batch"], spec["block"]
+        cfg = mod.named_config(spec["model"], block_size=T, **spec["over"])
+        gen = torch.Generator().manual_seed(14)
+        steps = spec.get("steps", 1)
+        batches = [tuple(torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+                         for _ in range(2)) for _ in range(steps)]
+        full = train_lib.make_train_state(0, cfg, dev) if rank == 0 else None
+        state = train_lib.make_train_state(0, cfg, dev, mesh=mesh)
+        shards = train_lib.tp_shards(cfg, mesh)
+        lg = train_lib.build_loss_and_grad(cfg, attn_fn=fa.flash_attention, mesh=mesh)
+        dist.barrier()
+        readings, launches = _tp_readings(rank, cfg, mod, full, state, shards, lg,
+                                          batches, exact=tag == "llama")
+        full = None
+        torch.cuda.empty_cache()
+        dist.barrier()
+        rows = []
+        if tag == "llama":
+            # the train steps: the counts of this part of the path alone
+            fa.reset_launch_counts()
+            hashing.reset_launch_counts()
+            for tok, tgt in batches:
+                torch.cuda.synchronize()
+                mesh_lib.reset_collective_stats(timed=True)
+                t0 = time.perf_counter()
+                loss = lg(state, tok, tgt).item()
+                train_lib.apply(state)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t0
+                coll = dict(mesh_lib.collective_stats)
+                rows.append({
+                    "loss": loss, "step_s": step_s, "tok_s": B * T / step_s,
+                    "coll_share": coll["seconds"] / step_s,
+                    "coll_bytes": coll["bytes"], "coll_calls": coll["calls"],
+                    "gains": " ".join(
+                        f"{hashing.torch_simplehash_device(state.params[g].detach()):016x}"
+                        for g in GAINS)})
+            launches = {**fa.launches, **hashing.launches}
+        out[tag] = {"rows": rows, "readings": readings, "launches": launches}
+        del state, lg, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pp_part(rank: int, dev) -> dict:
+    """Phase 15 on one rank: GPT-2 124M through the GPipe pipeline, stage
+    `rank` of 4."""
+    import torch
+    import torch.distributed as dist
+
+    from pccl_tpu_torch.models import gpt
+    from pccl_tpu_torch.models._common import gather_ce_loss
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import pipeline
+
+    mesh = mesh_lib.make_mesh(("pp",), (PP["stages"],), backend="gloo")
+    group, ring = mesh.group("pp"), mesh.ring("pp")
+    B, T = PP["batch"], PP["block"]
+    cfg = gpt.named_config(PP["model"], block_size=T, **PP["over"])
+    full = {k: v.to(dev) for k, v in
+            gpt.init_params(torch.Generator().manual_seed(0), cfg).items()}
+    gen = torch.Generator().manual_seed(15)
+    tok, tgt = (torch.randint(0, cfg.vocab_size, (B, T), generator=gen).to(dev)
+                for _ in range(2))
+    ref = None
+    if rank == 0:
+        params = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+        loss = gather_ce_loss(gpt.forward(params, tok, cfg,
+                                          attn_fn=fa.flash_attention), tgt)
+        loss.backward()
+        ref = (loss.item(), _flat({k: p.grad for k, p in params.items()}))
+        del params, loss
+        torch.cuda.empty_cache()
+    local = {**{k: full[k] for k in ("tok_emb", "lnf_g")},
+             **pipeline.shard_layer_params({k: full[k] for k in gpt._LAYER_KEYS},
+                                           mesh)}
+    del full
+    fwd = pipeline.build_pipelined_forward(cfg, mesh, microbatches=PP["microbatches"],
+                                           attn_fn=fa.flash_attention)
+    dist.barrier()
+    fa.reset_launch_counts()
+    runs = []
+    for i in range(PP["runs"]):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in local.items()}
+        torch.cuda.synchronize()
+        hop_s, hop_b = ring.seconds, ring.bytes
+        t0 = time.perf_counter()
+        loss = gather_ce_loss(fwd(params, tok), tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        row = {"loss": loss.item(), "step_s": time.perf_counter() - t0,
+               "hop_s": ring.seconds - hop_s, "hop_bytes": ring.bytes - hop_b}
+        if i == 0:
+            grads = {k: params[k].grad for k in ("tok_emb", "lnf_g")}
+            for k in gpt._LAYER_KEYS:
+                got = mesh_lib.gather_to(params[k].grad, group, 0)
+                if got is not None:
+                    grads[k] = torch.cat(got)
+            if ref is not None:
+                row.update(ref_loss=ref[0], cosine=cosine(_flat(grads), ref[1]))
+            del grads
+        runs.append(row)
+        del params, loss
+    return {"rows": runs, "launches": dict(fa.launches)}
+
+
+def _route_of(x2d, gate, C):
+    """(expert, slot) of each token, -1 where dropped, int64 [n, 2]."""
+    import torch
+
+    from pccl_tpu_torch.ops import moe
+
+    d, _ = moe._route(x2d, gate, C)
+    flat = d.reshape(d.shape[0], -1)
+    hit, idx = flat.sum(-1) > 0, flat.argmax(-1)
+    return torch.stack([torch.where(hit, idx // C, -1),
+                        torch.where(hit, idx % C, -1)], -1)
+
+
+def _moe_part(rank: int, dev) -> dict:
+    """Phase 16 on one rank: expert-parallel MoE at GPT-2 widths, E=8 over
+    4 ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from pccl_tpu_torch.ops import moe
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+
+    S, E = MOE["ep"], MOE["experts"]
+    mesh = mesh_lib.make_mesh(("ep",), (S,), backend="gloo")
+    group = mesh.group("ep")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = moe.init_moe_params(gen, MOE["d"], MOE["f"], E)
+    x = torch.randn((MOE["batch"], MOE["block"], MOE["d"]), generator=gen, device=dev)
+    b = MOE["batch"] // S
+    xl = x[rank * b:(rank + 1) * b]
+    n = b * MOE["block"]
+    local = moe.shard_moe_params(params, mesh)
+    res = {}
+    dist.barrier()
+    # cf = E: no drops; the routing and the output against the dense one
+    torch.cuda.synchronize()
+    mesh_lib.reset_collective_stats(timed=True)
+    t0 = time.perf_counter()
+    out = moe.moe_mlp_ep(xl, local, mesh, capacity_factor=float(E))
+    torch.cuda.synchronize()
+    res["ep_s"] = time.perf_counter() - t0
+    res["a2a"] = dict(mesh_lib.collective_stats)
+    route = _route_of(xl.reshape(n, -1), params["gate"], moe.capacity_ep(n, float(E), E))
+    routes = mesh_lib.gather_to(route, group, 0)
+    outs = mesh_lib.gather_to(out, group, 0)
+    if rank == 0:
+        dense = moe.moe_mlp_dense(x, params, capacity_factor=float(E))
+        dense_route = _route_of(x.reshape(S * n, -1), params["gate"], S * n)
+        # dense slots count over all shards: shard r's slot of expert e
+        # follows the tokens shards < r sent to e
+        counts = torch.stack([torch.bincount(r[:, 0], minlength=E) for r in routes])
+        offset = torch.cumsum(counts, 0) - counts
+        want = torch.cat([torch.stack([r[:, 0], r[:, 1] + offset[i][r[:, 0]]], -1)
+                          for i, r in enumerate(routes)])
+        got = torch.cat(outs)
+        res.update(route_equal=bool(torch.equal(want, dense_route)),
+                   dropped_dense=int((dense_route[:, 0] < 0).sum()),
+                   max_abs_err=(got.float() - dense.float()).abs().max().item())
+        del dense, dense_route, got
+    del outs, routes, out
+    torch.cuda.empty_cache()
+    # cf = 1: drops; sum(out²)'s gradient reaches the gate and w_in
+    params_g = {k: v.detach().clone().requires_grad_(True) for k, v in local.items()}
+    mesh_lib.reset_collective_stats(timed=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = moe.moe_mlp_ep(xl, params_g, mesh, capacity_factor=1.0)
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    route = _route_of(xl.reshape(n, -1), params["gate"], moe.capacity_ep(n, 1.0, E))
+    res.update(cf1_s=time.perf_counter() - t0, cf1_a2a=dict(mesh_lib.collective_stats),
+               cf1_finite=bool(torch.isfinite(out).all()),
+               cf1_dropped=(route[:, 0] < 0).float().mean().item(),
+               gate_grad=params_g["gate"].grad.abs().sum().item(),
+               w_in_grad=params_g["w_in"].grad.abs().sum().item())
+    return res
+
+
+def par_rank(rank: int, port: int) -> None:
+    """One of phases 14-16's four ranks (`python -m chip_smoke --par-rank R
+    --par-port P`): all share the card over gloo and run tp, then the
+    pipeline, then MoE; writes its figures to LOG_DIR/par<R>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=PAR_RANKS,
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        for name, part in (("tp", _tp_part), ("pp", _pp_part), ("moe", _moe_part)):
+            dist.barrier()
+            t0 = time.perf_counter()
+            out[name] = part(rank, dev)
+            out[name]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        (LOG_DIR / f"par{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def run_ranks(tag: str, flag: str, n: int, timeout: float) -> list:
+    """n rank processes `python -m chip_smoke --<flag>-rank R --<flag>-port
+    P` on the card, logging to LOG_DIR/<tag>R.log; each rank's
+    LOG_DIR/<tag>R.json, once all have ended. A rank that fails stops
+    them all (the others would wait in gloo)."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    port, = free_ports(1)
+    names = [f"{tag}{r}.log" for r in range(n)]
+    for r in range(n):
+        (LOG_DIR / f"{tag}{r}.json").unlink(missing_ok=True)
+    procs, files = [], []
+    try:
+        for r in range(n):
+            spawn(procs, files, env, names[r],
+                  ["chip_smoke", f"--{flag}-rank", str(r), f"--{flag}-port", str(port)])
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                raise SmokeError(f"{tag} ranks still running after {timeout} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            stop(p)
+        for f in files:
+            f.close()
+        dump_logs(names[:len(procs)])
+    res = []
+    for r, p in enumerate(procs):
+        path = LOG_DIR / f"{tag}{r}.json"
+        if p.returncode != 0 or not path.exists():
+            raise SmokeError(f"{tag} rank {r} exited {p.returncode}")
+        res.append(json.loads(path.read_text()))
+    return res
+
+
+def phase_par() -> list:
+    """Phases 14-16's four ranks (par_rank); returns their figures."""
+    res = run_ranks("par", "par", PAR_RANKS, PAR_TIMEOUT_S)
+    for name in ("tp", "pp", "moe"):
+        log(f"phase {name} (in the ranks): "
+            f"{_each('{:.1f}', [r[name]['phase_s'] for r in res])} s")
+    return res
+
+
+def _agree(tag: str, row: dict) -> None:
+    """Phase 4's limits against the unsharded bf16 step: loss gap <= 1e-3
+    nats and gradient cosine >= 0.9998."""
+    gap = abs(row["loss"] - row["ref_loss"])
+    log(f"  {tag} vs its unsharded reference: loss {row['loss']:.6f} vs "
+        f"{row['ref_loss']:.6f} (gap {gap:.2e}), gradient cosine {row['cosine']:.7f}")
+    if not (math.isfinite(row["loss"]) and gap <= 1e-3 and row["cosine"] >= 0.9998):
+        raise SmokeError(f"{tag} disagrees with its unsharded reference")
+
+
+def _ratio(tag: str, row: dict) -> tuple:
+    """Phase 14's Llama-700m reading, logged with the losses: the tp step's
+    gradient distance (1 - cosine) from the fp32 step and from the bf16
+    step, each over the bf16 step's distance from the fp32 step."""
+    base = 1 - row["ref_cosine_exact"]
+    to_exact, to_bf16 = (1 - row["cosine_exact"]) / base, (1 - row["cosine"]) / base
+    log(f"  {tag}: loss {row['loss']:.6f}, the bf16 step's {row['ref_loss']:.6f} "
+        f"(gap {abs(row['loss'] - row['ref_loss']):.2e}), the fp32 step's "
+        f"{row['exact_loss']:.6f}; gradient cosine with the bf16 step "
+        f"{row['cosine']:.7f}, with the fp32 step {row['cosine_exact']:.7f} (the "
+        f"bf16 step's {row['ref_cosine_exact']:.7f}); distance ratios to fp32 "
+        f"{to_exact:.4f}, to bf16 {to_bf16:.4f}")
+    return to_exact, to_bf16
+
+
+def check_tp(res: list) -> dict:
+    """Phase 14's checks; returns its launch totals."""
+    from pccl_tpu_torch.models import gpt, llama
+
+    L = llama.named_config(TP["model"], **TP["over"]).n_layer
+    for i in range(TP["steps"]):
+        rows = [r["tp"]["llama"]["rows"][i] for r in res]
+        if len({row["loss"] for row in rows}) != 1:
+            raise SmokeError(f"14: step {i}: losses differ across the tp ranks: "
+                             f"{[row['loss'] for row in rows]}")
+        if len({row["gains"] for row in rows}) != 1:
+            raise SmokeError(f"14: step {i}: H1 digests of the gains differ across "
+                             f"the tp ranks")
+        log(f"  tp step {i}: loss {rows[0]['loss']:.5f}, tok/s (global tokens) "
+            f"{_each('{:.0f}', [x['tok_s'] for x in rows])}, step s "
+            f"{_each('{:.3f}', [x['step_s'] for x in rows])}, tp collective share "
+            f"{_each('{:.3f}', [x['coll_share'] for x in rows])} ({rows[0]['coll_calls']} "
+            f"calls, {rows[0]['coll_bytes']} bytes a rank); gains' H1 digests equal")
+    # Llama-700m: two bf16 computations of one step differ by their
+    # roundings, at 24 layers by more than phase 4's cosine, so the tp
+    # step is held to the fp32 step, at every batch read, by its distance
+    # ratio; the control, with the fault _bf16_partials planted, must read
+    # above the limit
+    for i, row in enumerate(res[0]["tp"]["llama"]["readings"]):
+        tag = (f"14: Llama-700m at tp=4, batch {i // 2}"
+               + (" with bf16 partials planted (control)" if row["fault"] else ""))
+        _, ratio = _ratio(tag, row)
+        if row["fault"]:
+            if not ratio > TP_RATIO_LIMIT:
+                raise SmokeError(f"{tag}: distance ratio {ratio:.4f} within "
+                                 f"{TP_RATIO_LIMIT}: the check cannot see the fault")
+        elif not (math.isfinite(row["loss"]) and abs(row["loss"] - row["ref_loss"]) <= 1e-3
+                  and ratio <= TP_RATIO_LIMIT):
+            raise SmokeError(f"{tag}: disagrees with the unsharded steps")
+    _agree("14: GPT-2 2 layers at (dp, tp) = (2, 2)",
+           res[0]["tp"]["gpt"]["readings"][0])
+    gl = gpt.named_config(TP_GPT["model"], **TP_GPT["over"]).n_layer
+    for r in res:
+        for tag, want in (("llama", TP["steps"] * L), ("gpt", gl)):
+            got = [r["tp"][tag]["launches"][k] for k in FLASH]
+            if got != [want] * 3:
+                raise SmokeError(f"14: rank {r['rank']} launched K1-K3 {got} at "
+                                 f"{tag}, {want} each expected")
+    totals = {k: sum(r["tp"][t]["launches"][k] for r in res for t in ("llama", "gpt"))
+              for k in (*FLASH, "simplehash_tpu")}
+    log(f"tp path: 4 ranks on one card over gloo (Llama-700m at tp=4, 3 q heads "
+        f"over 1 kv head a rank), launches {totals}")
+    return {"launches": totals}
+
+
+def check_pp(res: list) -> dict:
+    """Phase 15's checks; returns its launch totals."""
+    from pccl_tpu_torch.models import gpt
+
+    S, M = PP["stages"], PP["microbatches"]
+    L = gpt.named_config(PP["model"], **PP["over"]).n_layer
+    for i in range(PP["runs"]):
+        rows = [r["pp"]["rows"][i] for r in res]
+        if len({row["loss"] for row in rows}) != 1:
+            raise SmokeError(f"15: run {i}: losses differ across the stages")
+        log(f"  pp run {i}: loss {rows[0]['loss']:.5f}, step s "
+            f"{_each('{:.3f}', [x['step_s'] for x in rows])}, hop s "
+            f"{_each('{:.3f}', [x['hop_s'] for x in rows])}, hop bytes a stage "
+            f"{rows[0]['hop_bytes']}, bubble share (S-1)/(M+S-1) = "
+            f"{(S - 1) / (M + S - 1):.3f}")
+    _agree("15: GPT-2 124M pipelined over 4 stages", res[0]["pp"]["rows"][0])
+    per_stage = L // S * (M + S - 1) * PP["runs"]
+    for r in res:
+        got = [r["pp"]["launches"][k] for k in FLASH]
+        if got != [per_stage] * 3:
+            raise SmokeError(f"15: stage {r['rank']} launched K1-K3 {got}, "
+                             f"{per_stage} each expected")
+    totals = {k: sum(r["pp"]["launches"][k] for r in res) for k in FLASH}
+    log(f"pipeline path: launches {totals}")
+    return {"launches": totals}
+
+
+def check_moe(res: list) -> None:
+    """Phase 16's checks."""
+    r0 = res[0]["moe"]
+    log(f"  moe cf=E: ep s {_each('{:.3f}', [r['moe']['ep_s'] for r in res])}, "
+        f"all_to_all {res[0]['moe']['a2a']['calls']} calls "
+        f"{_each('{:.3f}', [r['moe']['a2a']['seconds'] for r in res])} s, "
+        f"{res[0]['moe']['a2a']['bytes']} bytes a rank; routing equal to dense: "
+        f"{r0['route_equal']} (dense dropped {r0['dropped_dense']}); max |ep - dense| "
+        f"{r0['max_abs_err']:.3e}")
+    if not r0["route_equal"] or r0["dropped_dense"] or not r0["max_abs_err"] <= 2e-2:
+        raise SmokeError("16: expert-parallel MoE disagrees with the dense one")
+    for r in res:
+        m = r["moe"]
+        log(f"  moe cf=1 rank {r['rank']}: dropped share {m['cf1_dropped']:.4f}, "
+            f"fwd+bwd s {m['cf1_s']:.3f}, collectives {m['cf1_a2a']['calls']} calls "
+            f"{m['cf1_a2a']['seconds']:.3f} s {m['cf1_a2a']['bytes']} bytes, "
+            f"|grad| gate {m['gate_grad']:.4g} w_in {m['w_in_grad']:.4g}")
+        if not (m["cf1_finite"] and m["gate_grad"] > 0 and m["w_in_grad"] > 0):
+            raise SmokeError(f"16: rank {r['rank']}: cf=1 output or gradient wrong")
+
+
+# ------------------------------------------------------------------ phase 17
+
+# 16 steps: from random init at GPT-2 width AdamW moves the loss up and
+# down for the first ~10 steps (6 steps on the card: 10.98 -> 11.10 at lr
+# 1e-3, 10.98 -> 11.01 at 3e-4); by step 15 phase 6's peers are ~0.6 nats
+# below their start
+DDP_TP = dict(model="gpt2", block=1024, batch=8, steps=16, tp=2)
+DDP_TP_LINE = re.compile(
+    r"^step (\d+) loss (\S+) world (\d+) revision \d+ tok_s (\S+) ring_s (\S+) "
+    r"sync_s (\S+) gather_s (\S+) rank_launches (\S+) tx (\d+) rx (\d+) "
+    r"launches (\d+) (\d+) (\d+) (\d+) digest (\w+)$", re.M)
+
+
+def phase_ddp_tp() -> dict:
+    """Two `train_ddp --tp 2` peers (each a process and the rank it
+    spawns) and a master; returns per-kernel launch totals."""
+    peers = run_peer_pair(
+        [f"ddp_tp{rank}.log" for rank in range(2)],
+        "pccl_tpu_torch.examples.train_ddp",
+        ["--model", DDP_TP["model"], "--block", str(DDP_TP["block"]),
+         "--batch", str(DDP_TP["batch"]), "--steps", str(DDP_TP["steps"]),
+         "--tp", str(DDP_TP["tp"]), "--device", "cuda", "--attn", "flash"],
+        env_extra={"PCCLT_SS_HASH": "simple-tpu"})
+    keys = ("loss", "world", "tok_s", "ring_s", "sync_s", "gather_s", "ranks", "tx",
+            "rx", *FLASH, "simplehash_tpu", "digest")
+    rows = []
+    for rank, (code, text) in enumerate(peers):
+        if code != 0 or "FINAL" not in text:
+            raise SmokeError(f"17: tp peer {rank} exited {code}")
+        r = {int(m.group(1)): dict(zip(keys, m.groups()[1:]))
+             for m in DDP_TP_LINE.finditer(text)}
+        if sorted(r) != list(range(DDP_TP["steps"])):
+            raise SmokeError(f"17: tp peer {rank} logged steps {sorted(r)}")
+        rows.append(r)
+    for s in range(DDP_TP["steps"]):
+        a, b = rows[0][s], rows[1][s]
+        if a["digest"] != b["digest"] or a["world"] != "2" or b["world"] != "2":
+            raise SmokeError(f"17: step {s}: digests {a['digest']} {b['digest']}, "
+                             f"worlds {a['world']} {b['world']}")
+        if s > 0 and any((r["tx"], r["rx"]) != ("0", "0") for r in (a, b)):
+            raise SmokeError(f"17: step {s}: a sync moved bytes")
+        log(f"  ddp tp step {s}: loss {a['loss']} / {b['loss']}, ring_s {a['ring_s']} / "
+            f"{b['ring_s']}, sync_s {a['sync_s']} / {b['sync_s']}, gather_s "
+            f"{a['gather_s']} / {b['gather_s']}, tok_s {a['tok_s']} / {b['tok_s']}")
+    texts = [t for _, t in peers]
+    finals = {re.search(r"params_blake2b=(\w+)", t).group(1) for t in texts}
+    if len(finals) != 1:
+        raise SmokeError(f"17: final parameters differ: {sorted(finals)}")
+    # K1-K3 on every rank of each peer (rank 0 gathers the others' counts
+    # each step), H1 on rank 0, which hashes the gathered state
+    totals = {name: 0 for name, *_ in KERNELS}
+    for peer, r in enumerate(rows):
+        for s, row in r.items():
+            ranks = [[int(n) for n in x.split(",")] for x in row["ranks"].split("/")]
+            if len(ranks) != DDP_TP["tp"] or any(x != ranks[0] or min(x) <= 0
+                                                 for x in ranks):
+                raise SmokeError(f"17: peer {peer} step {s}: K1-K3 launches by rank "
+                                 f"{ranks}")
+            for rank_counts in ranks:
+                for name, n in zip(FLASH, rank_counts):
+                    totals[name] += n
+            totals["simplehash_tpu"] += int(row["simplehash_tpu"])
+        if not any(int(row["simplehash_tpu"]) for row in r.values()):
+            raise SmokeError(f"17: tp peer {peer}: simplehash_tpu never launched")
+    log(f"ddp tp path: 2 peers of tp=2, digests equal at every step, 0-byte syncs, "
+        f"params_blake2b {finals.pop()}; K1-K3 on every rank; launches {totals}")
+    return {"launches": totals}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2110,7 +2718,15 @@ def main() -> int:
     comm = timed("comm", phase_comm)
     # phase 13's ranks are processes of their own, whose counts start at 0
     sp = timed("sp", phase_sp)
-    paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp)
+    # phases 14-16 share four rank processes, which set their counts to 0
+    # before each phase and read them after it
+    par = timed("tp, pp, moe", phase_par)
+    tp = check_tp(par)
+    pp = check_pp(par)
+    check_moe(par)
+    ddp_tp = timed("ddp tp", phase_ddp_tp)
+    paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp,
+             tp, pp, ddp_tp)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -2133,6 +2749,11 @@ def main() -> int:
             row.update(at(m))
             row["llama700m"] = at(ll)
             row["sp"] = at(kres["sp"])
+            # and at phase 14's tp ranks' shapes
+            row["tp"] = at(kres["tp"])
+            row["tp_gpt"] = at(kres["tp_gpt"])
+            # and at phase 15's pipeline stages'
+            row["pp"] = at(kres["pp"])
             # through flash_attention_with_lse with an lse cotangent (3a)
             row["with_lse_max_abs_err"] = max(
                 e[o]["max_abs"] for e in lres.values() for o in out_names[name])
@@ -2154,14 +2775,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if "--sp-rank" in sys.argv:  # one of phase 13's ranks
+    if "--sp-rank" in sys.argv or "--par-rank" in sys.argv:
+        # one of phase 13's ranks, or of phases 14-16's
         import argparse
 
+        kind = "sp" if "--sp-rank" in sys.argv else "par"
         ap = argparse.ArgumentParser()
-        ap.add_argument("--sp-rank", type=int, required=True)
-        ap.add_argument("--sp-port", type=int, required=True)
-        a = ap.parse_args()
-        sp_rank(a.sp_rank, a.sp_port)
+        ap.add_argument(f"--{kind}-rank", type=int, required=True)
+        ap.add_argument(f"--{kind}-port", type=int, required=True)
+        a = vars(ap.parse_args())
+        (sp_rank if kind == "sp" else par_rank)(a[f"{kind}_rank"], a[f"{kind}_port"])
         sys.exit(0)
     try:
         sys.exit(main())

@@ -58,6 +58,28 @@ the batches already used and prints
     resumed from step N restore_s S
 Its first sync is a probe at revision 0 when the world has other peers
 (see sync_state).
+
+--tp N (N > 1): the peer is a tensor-parallel group of N ranks, the JAX
+example's in-slice mesh (dp, tp) = (1, N) read as processes. This process
+is rank 0 and the peer's only Communicator; it starts ranks 1..N-1 itself
+(multiprocessing's spawn, with the same arguments), joined over gloo
+through a FileStore in a temp dir, all on the same device. Each rank holds
+its blocks of the parameters and AdamW's state (models/convert.py) and
+runs the model tensor-parallel on the same batch. Each step rank 0 gathers
+the full parameters and moments (gather_s) and offers them, hashed by H1
+on the card, in the JAX package's names and order; on rx it scatters the
+adopted state. The gradient ring gathers the gradient blocks to rank 0,
+runs the AVG there over the full tensors in codec order (the JAX peer's
+vector), and scatters them back (parallel/hierarchical.py). Every decision
+rank 0 takes from the comm (adopted, the step, kicked, stop) reaches the
+other ranks by one small broadcast before any rank branches on it. The
+step line then also shows gather_s and, after it, `rank_launches
+a,b,c/a,b,c`, each rank's K1, K2 and K3 launches in the step, in rank
+order; its digest folds the ranks' H1 digests of their blocks (equal
+across peers of one tp degree); FINAL's
+params_blake2b is over the gathered full parameters, comparable across
+degrees. Checkpoints are gathered to rank 0 to save and scattered on
+resume. --tp 0 (auto) and --tp 1 are a one-rank peer.
 """
 
 from __future__ import annotations
@@ -70,14 +92,16 @@ import sys
 import time
 
 
-def state_entries(state, step_arr, make):
+def state_entries(state, step_arr, make, full=None):
     """The DDP shared state: parameters, optimizer leaves and the step,
-    each tensor entry made by `make` (a TensorInfo factory)."""
+    each tensor entry made by `make` (a TensorInfo factory). full:
+    (parameters by name, leaves) to offer instead of the state's own (a tp
+    peer's gathered tensors)."""
     from pccl_tpu_torch.comm import TensorInfo
     from pccl_tpu_torch.parallel import train as train_lib
 
-    params = [state.params[n] for n in sorted(state.params)]
-    leaves = train_lib.opt_state_leaves(state)
+    params, leaves = full or (state.params, train_lib.opt_state_leaves(state))
+    params = [params[n] for n in sorted(params)]
     return ([make(f"ddp.p{i}", p) for i, p in enumerate(params)]
             + [make(f"ddp.o{i}", x) for i, x in enumerate(leaves)]
             + [TensorInfo.from_numpy("ddp.step", step_arr)])
@@ -99,14 +123,24 @@ def entry_factory(dev):
     return TensorInfo.from_torch
 
 
-def adopt(state, entries) -> None:
-    """Write what a sync received into the parameters and the optimizer."""
+def adopt(state, entries, tp=None) -> None:
+    """Write what a sync received into the parameters and the optimizer.
+    With a tp group (convert.TpShards) every rank calls it: rank 0 with
+    the entries of the gathered tensors, the others with None, and each
+    gets its blocks."""
     import torch
 
     from pccl_tpu_torch.parallel import train as train_lib
 
     names = sorted(state.params)
     n = len(names)
+    if tp is not None:
+        params = leaves = None
+        if entries is not None:
+            params = {name: e.torch_value() for name, e in zip(names, entries[:n])}
+            leaves = [e.torch_value() for e in entries[n:-1]]
+        train_lib.load_gathered_state(state, tp, params, leaves)
+        return
     with torch.no_grad():
         for name, e in zip(names, entries[:n]):
             if e.updated:
@@ -115,21 +149,30 @@ def adopt(state, entries) -> None:
         state, [e.torch_value() for e in entries[n:-1]])
 
 
-def checkpoint_tree(state) -> dict:
+def checkpoint_tree(state, full=None) -> dict:
     """What a checkpoint holds: the parameters by name and AdamW's state in
     optax's leaf order (parallel/train.opt_state_leaves), the JAX
-    example's {params, opt_state}."""
+    example's {params, opt_state}; full: a tp peer's gathered (parameters,
+    leaves) instead of the state's own."""
     from pccl_tpu_torch.parallel import train as train_lib
 
-    return {"params": dict(state.params),
-            "opt_state": train_lib.opt_state_leaves(state)}
+    params, leaves = full or (dict(state.params), train_lib.opt_state_leaves(state))
+    return {"params": dict(params), "opt_state": list(leaves)}
 
 
 def params_digest(params) -> str:
     """H1 over each parameter, sorted by name, folded into 16 hex digits."""
+    return fold_digests(tensor_digests(params))
+
+
+def tensor_digests(params) -> list:
+    """H1 of each tensor, sorted by name."""
     from pccl_tpu_torch.ops.hashing import torch_simplehash_device
 
-    ds = [torch_simplehash_device(params[n]) for n in sorted(params)]
+    return [torch_simplehash_device(params[n]) for n in sorted(params)]
+
+
+def fold_digests(ds) -> str:
     return hashlib.blake2b(struct.pack(f"<{len(ds)}Q", *ds),
                            digest_size=8).hexdigest()
 
@@ -141,7 +184,85 @@ def params_blake2b(params) -> str:
     return hashlib.blake2b(flat.numpy().tobytes(), digest_size=16).hexdigest()
 
 
-def main(argv=None) -> int:
+def share(group, *values: int) -> list:
+    """Rank 0's values on every rank of a tp peer's group, as one int64
+    broadcast (rank 0 holds the comm and decides); the values themselves
+    for a one-rank peer (group None)."""
+    import torch
+    import torch.distributed as dist
+
+    if group is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.int64)
+    dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
+    return t.tolist()
+
+
+def _tp_rank_main(argv, rank: int, store: str) -> None:
+    """Ranks 1..N-1 of a tp peer, started by rank 0: the same loop,
+    without a comm; ends when the parent does."""
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(3)
+
+    threading.Thread(target=watch, daemon=True).start()
+    code = main(argv, tp_rank=rank, tp_store=store)
+    sys.stdout.flush()
+    os._exit(code)
+
+
+def _start_tp_ranks(argv, n: int):
+    """Ranks 1..n-1 of this peer as spawned processes, and the FileStore
+    path (in a temp dir) they and rank 0 join through."""
+    import multiprocessing as mp
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="train_ddp_tp_")
+    store = os.path.join(tmp, "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank_main, args=(argv, r, store), daemon=True)
+             for r in range(1, n)]
+    for p in procs:
+        p.start()
+    return procs, store, tmp
+
+
+def _exit_if_a_rank_dies(procs) -> None:
+    """Rank 0 ends the peer if another rank dies, rather than wait in a
+    collective for it."""
+    import threading
+
+    def watch():
+        while True:
+            for p in procs:
+                if p.exitcode not in (None, 0):
+                    print(f"tp rank process {p.name} exited {p.exitcode}",
+                          file=sys.stderr, flush=True)
+                    os._exit(1)
+            time.sleep(0.5)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _init_tp(n: int, rank: int, store: str):
+    """The gloo world of a tp peer, and its (tp,) mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=n, timeout=datetime.timedelta(hours=1))
+    return mesh_lib.make_mesh(("tp",), (n,), backend="gloo")
+
+
+def main(argv=None, tp_rank: int = 0, tp_store: "str | None" = None) -> int:
     ap = argparse.ArgumentParser()
     from pccl_tpu_torch.examples import common
 
@@ -150,6 +271,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--block", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="ranks of this peer's tensor-parallel group; 0 (auto) "
+                         "and 1 are one rank")
     ap.add_argument("--shm-staging", action="store_true",
                     help="stage the gradient vector in a registered shm buffer "
                          "(zero-copy ring when peers share this host)")
@@ -172,18 +296,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.grad_accum < 1:
         ap.error("--grad-accum must be at least 1")
-
-    import numpy as np
-    import torch
-
-    from pccl_tpu_torch.comm import (KickedError, PcclError, SharedState,
-                                     SharedStateSyncStrategy)
-    from pccl_tpu_torch.ops import flash_attention as fa
-    from pccl_tpu_torch.ops import hashing
-    from pccl_tpu_torch.parallel import train as train_lib
-    from pccl_tpu_torch.parallel.hierarchical import HierarchicalAllReduce
-    from pccl_tpu_torch.utils.data import prefetch_to_device
-    from pccl_tpu_torch.utils.rss import peak_rss_mib
+    if args.tp < 0:
+        ap.error("--tp must be 0 (auto) or more")
+    n_tp = max(1, args.tp)
 
     dev, attn_fn = common.device_and_attention(ap, args)
     try:
@@ -192,18 +307,67 @@ def main(argv=None) -> int:
         ap.error(str(e))
 
     cfg = common.model_config(args, char_level=args.data == "text")
-    comm = common.connect(args)
+    procs, tmp, mesh = [], None, None
+    if n_tp > 1:
+        from pccl_tpu_torch.models.convert import tp_layout
+
+        try:
+            tp_layout(cfg, n_tp)
+        except ValueError as e:
+            ap.error(str(e))
+        if tp_rank == 0:
+            procs, tp_store, tmp = _start_tp_ranks(
+                sys.argv[1:] if argv is None else list(argv), n_tp)
+            _exit_if_a_rank_dies(procs)
+        mesh = _init_tp(n_tp, tp_rank, tp_store)
+    try:
+        return _run(args, dev, attn_fn, make, cfg, mesh)
+    finally:
+        if mesh is not None:
+            import shutil
+
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+            if tmp is not None:
+                shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
+    import numpy as np
+    import torch
+
+    from pccl_tpu_torch.comm import (KickedError, PcclError, SharedState,
+                                     SharedStateSyncStrategy)
+    from pccl_tpu_torch.examples import common
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import hashing
+    from pccl_tpu_torch.parallel import train as train_lib
+    from pccl_tpu_torch.parallel.hierarchical import HierarchicalAllReduce
+    from pccl_tpu_torch.utils.data import prefetch_to_device
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
+
+    tp = train_lib.tp_shards(cfg, mesh)
+    tp_group = None if tp is None else tp.group
+    lead = tp is None or tp.rank == 0
+    comm = common.connect(args) if lead else None
+    in_group, = share(tp_group, int(comm is not None))
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.lr,
-        schedule=common.make_schedule(args, args.lr, args.steps))
+        schedule=common.make_schedule(args, args.lr, args.steps), mesh=mesh)
     accum = args.grad_accum
     loss_and_grad = train_lib.build_loss_and_grad(cfg, attn_fn=attn_fn,
-                                                  accum_steps=accum)
+                                                  accum_steps=accum, mesh=mesh)
 
     def make_ring(comm):
+        # a solo tp peer has nothing to gather: its ring is the identity
         return HierarchicalAllReduce(
             comm, state.params, quantization=common.quant_from_arg(args.quantize),
-            shm_staging=args.shm_staging)
+            shm_staging=args.shm_staging, tp=tp if in_group else None)
 
     ring = make_ring(comm)
     prof = common.make_profiler(args)
@@ -213,21 +377,26 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def full_state():
+        """(parameters, leaves) in full on rank 0, (None, None) on the
+        other ranks of a tp peer; None for a one-rank peer (its own)."""
+        return None if tp is None else train_lib.gathered_state(state, tp)
+
     ckpt, start = None, 0
     if args.checkpoint_dir:
         from pccl_tpu_torch.utils.checkpoint import Checkpointer
 
-        ckpt = Checkpointer(args.checkpoint_dir)
-        latest = ckpt.latest_step()
-        if latest is not None:
+        ckpt = Checkpointer(args.checkpoint_dir) if lead else None
+        latest, = share(tp_group, -1 if ckpt is None or ckpt.latest_step() is None
+                        else ckpt.latest_step())
+        if latest >= 0:
             t0 = time.perf_counter()
             # loaded to the host and copied into the live tensors, so the
             # card never holds a second copy of the state
-            tree = ckpt.load(checkpoint_tree(state), latest)
-            with torch.no_grad():
-                for name, p in state.params.items():
-                    p.copy_(tree["params"][name])
-            train_lib.load_opt_state_leaves(state, tree["opt_state"])
+            tree = ckpt.load(_full_template(state, tp), latest) if lead \
+                else {"params": None, "opt_state": None}
+            train_lib.load_gathered_state(state, tp, tree["params"],
+                                          tree["opt_state"])
             sync_device()
             start = latest
             # past the batches steps [0, start) used, before the prefetcher
@@ -235,8 +404,9 @@ def main(argv=None) -> int:
             # again
             for _ in range(start * accum):
                 next_batch()
-            print(f"resumed from step {latest} restore_s "
-                  f"{time.perf_counter() - t0:.3f}", flush=True)
+            if lead:
+                print(f"resumed from step {latest} restore_s "
+                      f"{time.perf_counter() - t0:.3f}", flush=True)
 
     def batches():
         while True:
@@ -259,9 +429,10 @@ def main(argv=None) -> int:
             for _ in range(args.eval_batches):
                 et, ey = (torch.from_numpy(x).to(dev) for x in eval_batch())
                 vals.append(float(model.loss_fn(state.params, et, ey, cfg,
-                                                attn_fn)))
-        print(f"eval step {step} loss {np.mean(vals):.4f} launches "
-              f"{fa.launches['flash_fwd']}", flush=True)
+                                                attn_fn, tp=tp_group)))
+        if lead:
+            print(f"eval step {step} loss {np.mean(vals):.4f} launches "
+                  f"{fa.launches['flash_fwd']}", flush=True)
 
     # --- per-step shared-state sync ---
     # The DDP invariant is identical parameters and optimizer state on every
@@ -288,10 +459,10 @@ def main(argv=None) -> int:
     next_revision = None
     probe = start > 0
 
-    def sync_state(comm, step):
+    def sync_state(comm, step, full):
         nonlocal next_revision, probe
         step_arr = np.array([step], dtype=np.uint64)
-        entries = state_entries(state, step_arr, make)
+        entries = state_entries(state, step_arr, make, full)
         if probe and comm.world_size >= 2:
             revision = 0
         else:
@@ -318,11 +489,7 @@ def main(argv=None) -> int:
                     pass
         next_revision = info.revision + 1
         probe = False
-        if info.rx_bytes:  # outdated: adopt the cohort's state
-            adopt(state, entries)
-            step = int(step_arr[0])
-            print(f"adopted shared state at step {step}", flush=True)
-        return step, info
+        return entries, int(step_arr[0]), info
 
     first_loss = last_loss = None
     step = start
@@ -330,29 +497,44 @@ def main(argv=None) -> int:
         fa.reset_launch_counts()
         hashing.reset_launch_counts()
         t_start = time.perf_counter()
-        common.admit_pending(comm)
+        if lead:
+            common.admit_pending(comm)
         tx = rx = revision = 0
-        sync_s = 0.0
-        if comm is not None:
-            try:
-                with prof.section("sync_state"):
-                    step, info = sync_state(comm, step)
-            except KickedError:
-                # a kick ends the communicator: reconnect and offer revision
-                # 0, which cannot be kicked, so the election converges this
-                # peer onto the cohort's state
-                print("kicked during sync; reconnecting with a revision-0 "
-                      "enforce-popular offer", flush=True)
+        sync_s = gather_s = 0.0
+        if in_group:
+            full = full_state()
+            gather_s = time.perf_counter() - t_start
+            entries, kicked, info = None, 0, None
+            if lead:
                 try:
-                    comm.destroy()
-                except PcclError:
-                    pass
-                comm = common.connect(args)
-                ring = make_ring(comm)
-                next_revision, probe = 0, False
+                    with prof.section("sync_state"):
+                        entries, step, info = sync_state(comm, step, full)
+                except KickedError:
+                    # a kick ends the communicator: reconnect and offer
+                    # revision 0, which cannot be kicked, so the election
+                    # converges this peer onto the cohort's state
+                    print("kicked during sync; reconnecting with a revision-0 "
+                          "enforce-popular offer", flush=True)
+                    try:
+                        comm.destroy()
+                    except PcclError:
+                        pass
+                    comm = common.connect(args)
+                    ring = make_ring(comm)
+                    next_revision, probe = 0, False
+                    kicked = 1
+            adopted, step, kicked = share(
+                tp_group, int(info is not None and info.rx_bytes > 0), step, kicked)
+            if kicked:
                 continue
+            if adopted:  # outdated: adopt the cohort's state
+                adopt(state, entries, tp)
+                if lead:
+                    print(f"adopted shared state at step {step}", flush=True)
             sync_s = time.perf_counter() - t_start
-            tx, rx, revision = info.tx_bytes, info.rx_bytes, info.revision
+            if info is not None:
+                tx, rx, revision = info.tx_bytes, info.rx_bytes, info.revision
+            del full, entries
             if step >= args.steps:
                 break
         tok, tgt = next(feed)
@@ -369,33 +551,81 @@ def main(argv=None) -> int:
             loss = float(loss)
             sync_device()
         tok_s = accum * args.batch * args.block / (time.perf_counter() - t_start)
-        digest = params_digest(state.params)
+        flash = [fa.launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+        rank_launches = ""
+        if tp is None:
+            digest = params_digest(state.params)
+        else:
+            # H1 of each rank's blocks and its K1-K3 launches, gathered in
+            # rank order; the digests folded
+            from pccl_tpu_torch.parallel.mesh import gather_to
+
+            ds = np.array(tensor_digests(state.params), np.uint64).view(np.int64)
+            got = gather_to(torch.from_numpy(np.concatenate([ds, flash])), tp.group, 0)
+            digest = None if got is None else fold_digests(
+                [int(d) for g in got for d in g[:-3].numpy().view(np.uint64)])
+            if got is not None:
+                rank_launches = " rank_launches " + "/".join(
+                    ",".join(str(int(n)) for n in g[-3:]) for g in got)
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
         world = comm.world_size if comm is not None else 1
-        print(f"step {step} loss {loss:.4f} world {world} revision {revision} "
-              f"tok_s {tok_s:.1f} ring_s {ring_s:.4f} sync_s {sync_s:.4f} "
-              f"tx {tx} rx {rx} launches {fa.launches['flash_fwd']} "
-              f"{fa.launches['flash_bwd_dq']} {fa.launches['flash_bwd_dkv']} "
-              f"{hashing.launches['simplehash_tpu']} digest {digest}", flush=True)
+        if lead:
+            gather = f" gather_s {gather_s:.4f}" if tp is not None else ""
+            print(f"step {step} loss {loss:.4f} world {world} revision {revision} "
+                  f"tok_s {tok_s:.1f} ring_s {ring_s:.4f} sync_s {sync_s:.4f}"
+                  f"{gather}{rank_launches} tx {tx} rx {rx} launches "
+                  f"{' '.join(map(str, flash))} {hashing.launches['simplehash_tpu']} "
+                  f"digest {digest}", flush=True)
         if eval_batch is not None and (step + 1) % args.eval_every == 0:
             evaluate(step)
-        if ckpt is not None and (step + 1) % args.checkpoint_every == 0:
+        if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
             t0 = time.perf_counter()
-            path = ckpt.save(step + 1, checkpoint_tree(state))
-            print(f"checkpoint step {step + 1} bytes {path.stat().st_size} "
-                  f"save_s {time.perf_counter() - t0:.3f}", flush=True)
+            full = full_state()
+            if lead:
+                path = ckpt.save(step + 1, checkpoint_tree(state, full))
+                print(f"checkpoint step {step + 1} bytes {path.stat().st_size} "
+                      f"save_s {time.perf_counter() - t0:.3f}", flush=True)
         step += 1
 
     feed.close()
+    final = full_state()
+    params = state.params if final is None else final[0]
+    if not lead:
+        return 0
     common.finish_profile(args, prof)
-    extra = f" params_blake2b={params_blake2b(state.params)}"
+    extra = f" params_blake2b={params_blake2b(params)}"
     if dev.type == "cuda":
         extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
     extra += f" peak_rss_mib={peak_rss_mib()}"
     return common.report_final(
         first_loss, last_loss, comm, require_descent=not args.no_descent_check,
         extra=extra)
+
+
+def _full_template(state, tp) -> dict:
+    """checkpoint_tree's structure with the full shapes of a tp peer's
+    blocks (meta tensors: the checkpoint's load only checks them); a
+    one-rank peer's own tree."""
+    import torch
+
+    from pccl_tpu_torch.parallel import train as train_lib
+
+    if tp is None:
+        return checkpoint_tree(state)
+
+    def full(name, t):
+        return torch.empty(tp.full_shape(name, t.shape), dtype=t.dtype,
+                           device="meta")
+
+    names = sorted(state.params)
+    n = len(names)
+    leaves = train_lib.opt_state_leaves(state)
+    return {"params": {k: full(k, v) for k, v in state.params.items()},
+            "opt_state": [leaves[0]]
+            + [full(k, x) for k, x in zip(names, leaves[1:1 + n])]
+            + [full(k, x) for k, x in zip(names, leaves[1 + n:1 + 2 * n])]
+            + leaves[1 + 2 * n:]}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,16 @@
 """Pieces shared by the model families: the layer loop with checkpointing,
-the fp32-output head product and the cross-entropy losses."""
+the fp32-output head product and the cross-entropy losses, and their
+tensor-parallel forms: the vocab-parallel embedding lookup and
+cross-entropy, and the row-parallel out-projection."""
 
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import all_reduce_, copy_to, group_size, reduce_from
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -137,3 +142,138 @@ def chunked_ce_loss(x: torch.Tensor, head_mat: torch.Tensor,
         tot = tot + checkpoint(chunk_nll, x[:, i:i + chunk],
                                targets[:, i:i + chunk], use_reentrant=False)
     return tot / (B * T)
+
+
+# ------------------------------------------------------------ tensor parallel
+
+def tp_group(group):
+    """The group a model's tp path runs over: None without one or for a
+    group of 1, so that the unsharded path stays exactly what it is. The
+    models' entry points (hidden, forward, loss_fn) call it; everything
+    below them branches on `tp is None`."""
+    return group if group_size(group) > 1 else None
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b [m, k] x [k, n] with fp32 accumulation and an fp32 result."""
+    if a.dtype == torch.float32:
+        return a @ b.float()
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # products of two bf16 values are exact in fp32
+    return a.float() @ b.float()
+
+
+class _ColumnIn(torch.autograd.Function):
+    """A column-parallel in-projection x @ w with compute-dtype operands,
+    taking x in fp32 (from column_input): its backward returns the
+    rank's partial input gradient in fp32, so that autograd adds the
+    products' shares and copy_to sums the ranks' in fp32, and the cast
+    back to the compute dtype rounds once, as the unsharded product's
+    gradient does. The weight gradient is the compute-dtype product's."""
+
+    @staticmethod
+    def forward(ctx, x32, w, dtype, f32_out: bool):
+        xb, wb = x32.to(dtype), w.to(dtype)
+        ctx.save_for_backward(xb, wb)
+        ctx.w_dtype = w.dtype
+        x2 = xb.reshape(-1, xb.shape[-1])
+        out = _mm_f32(x2, wb) if f32_out else x2 @ wb
+        return out.reshape(*xb.shape[:-1], wb.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(xb.dtype)
+        dx = _mm_f32(g2, wb.t()).reshape(xb.shape)
+        dw = (xb.reshape(-1, xb.shape[-1]).t() @ g2).to(ctx.w_dtype)
+        return dx, dw, None, None
+
+
+def column_input(h: torch.Tensor, tp=None) -> torch.Tensor:
+    """What the column-parallel in-projections of h take: h itself without
+    a tp group; with one, h in fp32 through copy_to (see _ColumnIn)."""
+    return h if tp is None else copy_to(h.float(), tp)
+
+
+def column(x: torch.Tensor, w: torch.Tensor, dtype, tp, f32_out: bool = False):
+    """x @ w in `dtype` (with an fp32 result if f32_out) for x from
+    column_input(h, tp): the plain product without a tp group, _ColumnIn
+    with one."""
+    if tp is None:
+        return matmul_f32(x, w) if f32_out else x @ w.to(dtype)
+    return _ColumnIn.apply(x, w, dtype, f32_out)
+
+
+def embed(tok_emb: torch.Tensor, tokens: torch.Tensor, dtype, tp=None):
+    """tok_emb[tokens] cast to dtype. With a tp group tok_emb is this rank's
+    block of vocab rows [r·V/tp, (r+1)·V/tp): tokens outside it give zero
+    rows, and the SUM over the group (reduce_from) adds one rank's row to
+    zeros, so the result is exact."""
+    tokens = tokens.long()
+    if tp is None:
+        return tok_emb[tokens].to(dtype)
+    v = tok_emb.shape[0]
+    local = tokens - dist.get_rank(tp) * v
+    inside = (local >= 0) & (local < v)
+    rows = tok_emb[torch.where(inside, local, 0)] * inside[..., None]
+    return reduce_from(rows, tp).to(dtype)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """x @ w for an out-projection, in x's dtype. With a tp group x holds
+    this rank's block of the input features and w its block of rows: the
+    partial products are fp32 (matmul_f32), summed over the group in fp32
+    and cast once, where summing compute-dtype partials would round tp
+    times."""
+    if tp is None:
+        return x @ w.to(x.dtype)
+    return reduce_from(matmul_f32(x, w), tp).to(x.dtype)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Mean CE over logits split by vocab blocks over a group: the global
+    max from a MAX all_reduce of the detached values, then one SUM
+    all_reduce of (sum of exps, target logit); the backward is the local
+    softmax minus the local one-hot. Every rank returns the same loss."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group):
+        v = logits.shape[-1]
+        local = targets.long() - dist.get_rank(group) * v
+        inside = (local >= 0) & (local < v)
+        local = torch.where(inside, local, 0)
+        m = all_reduce_(logits.detach().amax(dim=-1), group, dist.ReduceOp.MAX)
+        e = torch.exp(logits - m[..., None])
+        tgt = logits.gather(-1, local[..., None])[..., 0] * inside
+        sums = all_reduce_(torch.stack([e.sum(dim=-1), tgt]), group)
+        ctx.save_for_backward(e, sums[0], local, inside)
+        return (torch.log(sums[0]) + m - sums[1]).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, local, inside = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, local[..., None], -inside[..., None].to(grad.dtype))
+        return grad * (g / total.numel()), None, None
+
+
+def vocab_parallel_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+                           tp=None) -> torch.Tensor:
+    """gather_ce_loss of fp32 logits [B, T, V] or, with a tp group, of
+    this rank's vocab block [B, T, V/tp] (rank r holds [r·V/tp, ...))."""
+    if tp is None:
+        return gather_ce_loss(logits, targets)
+    return _VocabParallelCE.apply(logits, targets, tp)
+
+
+def tp_head_loss(x: torch.Tensor, head_mat: torch.Tensor, targets, tp,
+                 loss_chunk) -> torch.Tensor:
+    """The loss of final hidden states x against a vocab-parallel head
+    block [d, V/tp] (a column-parallel product: x's cotangent sums over
+    the blocks)."""
+    if loss_chunk:
+        raise NotImplementedError("loss_chunk with a tp group of more than "
+                                  "one rank is not supported")
+    return vocab_parallel_ce_loss(
+        column(column_input(x, tp), head_mat, x.dtype, tp, f32_out=True), targets, tp)

@@ -1,16 +1,31 @@
 """Weights across the two packages: numpy dicts with the JAX package's
 names and shapes <-> this package's tensor dicts. Both layouts are the same
 (stacked [n_layer, ...] tensors, [in, out] weights), so nothing is
-transposed; only names and shapes are checked."""
+transposed; only names and shapes are checked.
+
+And weights across the ranks of a tensor-parallel axis (`TpShards`,
+`shard_params`, `gather_params`): the dim each parameter splits along is
+the one the JAX package's spec puts on "tp" (parallel/mesh.py), but the
+blocks are per head, not the spec's contiguous column blocks. Under
+`P(None, None, "tp")` JAX stores GPT's fused `attn_qkv` [L, d, 3d] in
+contiguous column blocks, so at tp=2 rank 0 would hold all of q and half
+of k; GSPMD computes the same function anyway. A rank of the port runs
+attention on its own heads, so its block of `attn_qkv` is q heads
+[h0, h1), k heads [h0, h1) and v heads [h0, h1), and of Llama's `attn_kv`
+[L, d, 2·Hkv·Dh] (k | v) its kv heads. q head h reads kv head h // G, so
+q heads [r·H/tp, ...) meet kv heads [r·Hkv/tp, ...) only when tp divides
+n_kv_head; otherwise the layout raises. `gather_params` gives back the
+full tensors in the JAX package's layout."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel import mesh as mesh_lib
 from ..parallel.train import family
 
 
@@ -38,3 +53,140 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """fp32 numpy copies of every tensor (bf16 is widened: numpy has no
     bf16)."""
     return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in params.items()}
+
+
+# ------------------------------------------------------------ tp layout
+
+# sections of the split dim that are cut separately: GPT's fused q | k | v
+# and Llama's k | v, so that a rank's block holds whole heads of each
+_SECTIONS = {"attn_qkv": 3, "attn_kv": 2}
+
+
+def tp_layout(cfg, tp: int) -> Dict[str, Optional[int]]:
+    """Name -> the dim split over tp (None: replicated) for every parameter
+    of the config's family; raises where tp does not split whole heads,
+    the FFN width or the vocab."""
+    from . import llama
+
+    is_llama = isinstance(cfg, llama.LlamaConfig)
+    need = {"n_head": cfg.n_head, "vocab_size": cfg.vocab_size,
+            "ffn width": cfg.ffn_dim if is_llama else 4 * cfg.n_embd}
+    if is_llama:
+        need["n_kv_head"] = cfg.n_kv_head
+    for what, n in need.items():
+        if n % tp:
+            hint = (" (q head h reads kv head h // G, so each rank needs "
+                    "whole kv heads; JAX's GSPMD computes this case, the "
+                    "port does not)") if what == "n_kv_head" else ""
+            raise ValueError(f"tp={tp} does not divide {what}={n}{hint}")
+    specs = mesh_lib.param_specs(is_llama, getattr(cfg, "untie_head", False))
+    return {name: (spec.index("tp") if "tp" in spec else None)
+            for name, spec in specs.items()}
+
+
+def _split(x: torch.Tensor, dim: int, sections: int, n: int) -> list:
+    """The n ranks' blocks of x along dim: each of the `sections` equal
+    parts of the dim cut in n, rank i's pieces concatenated."""
+    parts = [sec.chunk(n, dim) for sec in x.chunk(sections, dim)]
+    return [torch.cat([p[i] for p in parts], dim) if sections > 1 else parts[0][i]
+            for i in range(n)]
+
+
+def _join(blocks, dim: int, sections: int) -> torch.Tensor:
+    """The inverse of _split: the full tensor from the ranks' blocks."""
+    cut = [b.chunk(sections, dim) for b in blocks]
+    return torch.cat([torch.cat([c[j] for c in cut], dim)
+                      for j in range(sections)], dim)
+
+
+class TpShards:
+    """The per-head tp layout of a config's parameters over one mesh axis:
+    `shard` cuts this rank's blocks from full tensors, `gather` joins the
+    ranks' blocks into full tensors (on every rank, or on one), `scatter`
+    writes each rank's block of full tensors held by one rank. Every rank
+    of the axis must call gather and scatter, in the same order."""
+
+    def __init__(self, cfg, mesh, axis: str = "tp"):
+        self.group = mesh.group(axis)
+        self.size = mesh.size(axis)
+        self.rank = mesh.rank(axis)
+        self.layout = tp_layout(cfg, self.size)
+
+    def _dim(self, name: str) -> Optional[int]:
+        if name not in self.layout:
+            raise KeyError(f"no tp layout for parameter {name!r}")
+        return self.layout[name]
+
+    def blocks(self, name: str, x: torch.Tensor) -> list:
+        """Every rank's block of the full tensor x, in rank order."""
+        dim = self._dim(name)
+        if dim is None:
+            return [x] * self.size
+        return _split(x, dim, _SECTIONS.get(name, 1), self.size)
+
+    def shard(self, full: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's block of each full tensor (new contiguous tensors for
+        split parameters, the tensor itself for replicated ones)."""
+        return {name: (x if self._dim(name) is None
+                       else self.blocks(name, x)[self.rank].contiguous())
+                for name, x in full.items()}
+
+    def full_shape(self, name: str, shape) -> tuple:
+        """The full tensor's shape from a block's."""
+        dim, shape = self._dim(name), list(shape)
+        if dim is not None:
+            shape[dim] *= self.size
+        return tuple(shape)
+
+    def join(self, name: str, blocks) -> torch.Tensor:
+        dim = self._dim(name)
+        return blocks[0] if dim is None else _join(blocks, dim,
+                                                   _SECTIONS.get(name, 1))
+
+    def gather(self, local: Dict[str, torch.Tensor],
+               dst: Optional[int] = None) -> Optional[Dict[str, torch.Tensor]]:
+        """Full tensors from every rank's blocks, in `local`'s order: on
+        every rank (dst None), or on the axis's rank dst only (None on the
+        others). Replicated tensors are this rank's own."""
+        out = {}
+        for name, x in local.items():
+            x = x.detach()
+            if self._dim(name) is None:
+                out[name] = x
+                continue
+            blocks = (mesh_lib.gather_all(x, self.group) if dst is None
+                      else mesh_lib.gather_to(x, self.group, dst))
+            if blocks is not None:
+                out[name] = self.join(name, blocks)
+        return out if dst is None or self.rank == dst else None
+
+    def scatter(self, full: Optional[Dict[str, torch.Tensor]],
+                out: Dict[str, torch.Tensor], src: int = 0) -> None:
+        """Write each rank's block of `full` (given on the axis's rank src)
+        into that rank's tensors of `out`, in place; replicated tensors are
+        broadcast from src."""
+        for name, o in out.items():
+            if self._dim(name) is None:
+                with torch.no_grad():
+                    if self.rank == src:
+                        o.copy_(full[name])
+                    torch.distributed.broadcast(
+                        o, torch.distributed.get_global_rank(self.group, src),
+                        group=self.group)
+                continue
+            parts = self.blocks(name, full[name]) if self.rank == src else None
+            mesh_lib.scatter_from(parts, o, self.group, src)
+
+
+def shard_params(full: Dict[str, torch.Tensor], cfg, mesh,
+                 axis: str = "tp") -> Dict[str, torch.Tensor]:
+    """This rank's blocks of full parameters (params_from_numpy's output,
+    or init_params') in the per-head tp layout; no collective."""
+    return TpShards(cfg, mesh, axis).shard(full)
+
+
+def gather_params(local: Dict[str, torch.Tensor], cfg, mesh,
+                  axis: str = "tp") -> Dict[str, torch.Tensor]:
+    """The full parameters, in the JAX package's layout, on every rank of
+    the axis, from each rank's blocks. Every rank must call it."""
+    return TpShards(cfg, mesh, axis).gather(local)

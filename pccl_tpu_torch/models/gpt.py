@@ -10,6 +10,17 @@ rsqrt; rotary embeddings on two halves of the head dim (not interleaved),
 with cos and sin cast to the compute dtype; GELU with the tanh
 approximation (jax.nn.gelu's default); the tied head with compute-dtype
 operands and an fp32 result.
+
+Tensor parallelism (`tp=`, a process group, or None): each rank holds its
+block of the parameters (models/convert.py: whole heads of q, k and v,
+columns of mlp_in, rows of attn_out and mlp_out, vocab rows of tok_emb),
+and the block runs Megatron's sequence: copy_to, the local in-projections,
+RoPE, attention on the rank's heads, the local out-projection with an fp32
+result, reduce_from in fp32, one cast. In the backward the in-projections'
+partial input gradients are fp32 too, summed over the ranks by copy_to
+in fp32 and cast once (models/_common.py:_ColumnIn). The embedding and the loss are
+vocab-parallel (models/_common.py). Without a group, or with a group of
+1, every result is bitwise what it is without the argument.
 """
 
 from __future__ import annotations
@@ -21,7 +32,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ._common import chunked_ce_loss, gather_ce_loss, matmul_f32, run_blocks
+from ._common import (chunked_ce_loss, column, column_input, embed,
+                      gather_ce_loss, row_parallel, run_blocks,
+                      tp_group, tp_head_loss)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,29 +139,35 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None, pos_offset=0):
-    B, T, d = x.shape
-    H, Dh = cfg.n_head, cfg.head_dim
+def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None, pos_offset=0,
+           tp=None):
+    """One block on this rank's heads: H = the local qkv width / 3 Dh (all
+    heads without a tp group)."""
+    B, T, _ = x.shape
+    Dh = cfg.head_dim
     h = _rmsnorm(x, params["ln1_g"][layer])
-    qkv = h @ params["attn_qkv"][layer].to(h.dtype)
-    q, k, v = qkv.split(d, dim=-1)
+    qkv = column(column_input(h, tp), params["attn_qkv"][layer], h.dtype, tp)
+    q, k, v = qkv.chunk(3, dim=-1)
+    H = q.shape[-1] // Dh
     q = _rope(q.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     k = _rope(k.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, H, Dh)
-    att = (attn_fn or _attention)(q, k, v).reshape(B, T, d)
-    x = x + att @ params["attn_out"][layer].to(att.dtype)
+    att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
+    x = x + row_parallel(att, params["attn_out"][layer], tp)
     h = _rmsnorm(x, params["ln2_g"][layer])
-    h = F.gelu(h @ params["mlp_in"][layer].to(h.dtype), approximate="tanh")
-    return x + h @ params["mlp_out"][layer].to(h.dtype)
+    h = F.gelu(column(column_input(h, tp), params["mlp_in"][layer], h.dtype, tp),
+               approximate="tanh")
+    return x + row_parallel(h, params["mlp_out"][layer], tp)
 
 
 def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
-           pos_offset: int = 0):
+           pos_offset: int = 0, tp=None):
     """tokens int [B, T] at global positions pos_offset.. -> final-norm
-    hidden states [B, T, d]."""
-    x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
+    hidden states [B, T, d] (the same on every rank of a tp group)."""
+    tp = tp_group(tp)
+    x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
     x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
-                                           pos_offset),
+                                           pos_offset, tp),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 
@@ -159,23 +178,32 @@ def _head_mat(params, cfg: GPTConfig) -> torch.Tensor:
 
 
 def forward(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
-            pos_offset: int = 0):
+            pos_offset: int = 0, tp=None):
     """tokens int [B, T] -> logits fp32 [B, T, vocab]. attn_fn overrides the
     attention op (e.g. ops.flash_attention); remat checkpoints each block;
-    pos_offset is the global position of the first token."""
-    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
-    return matmul_f32(x, _head_mat(params, cfg))
+    pos_offset is the global position of the first token. With a tp group:
+    this rank's vocab block of the logits, [B, T, vocab/tp]."""
+    tp = tp_group(tp)
+    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp)
+    return column(column_input(x, tp), _head_mat(params, cfg), x.dtype, tp,
+                  f32_out=True)
 
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
-            pos_offset: int = 0) -> torch.Tensor:
+            pos_offset: int = 0, tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T; pos_offset as in forward."""
+    divide T; pos_offset as in forward. With a tp group the loss is
+    vocab-parallel and the same on every rank; loss_chunk then raises."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
+    tp = tp_group(tp)
+    if tp is not None:
+        return tp_head_loss(hidden(params, tokens, cfg, attn_fn, remat,
+                                   pos_offset, tp),
+                            _head_mat(params, cfg), targets, tp, loss_chunk)
     if loss_chunk and T > loss_chunk:
         x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
         return chunked_ce_loss(x, _head_mat(params, cfg), targets, loss_chunk)

@@ -12,6 +12,11 @@ Numerics follow the JAX package: parameters in fp32, compute in
 `compute_dtype` (bf16 by default); RMSNorm and rotary embeddings as in
 models/gpt.py (the same functions); SiLU gating; the untied head with
 compute-dtype operands and an fp32 result.
+
+Tensor parallelism (`tp=`) as in models/gpt.py: a rank holds whole q heads
+[r·H/tp, ...) and the kv heads they read, [r·Hkv/tp, ...) (tp must divide
+n_kv_head), columns of mlp_gate and mlp_up, rows of attn_out and
+mlp_down, and vocab blocks of tok_emb and the head.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ._common import chunked_ce_loss, gather_ce_loss, matmul_f32, run_blocks
+from ._common import (chunked_ce_loss, column, column_input, embed,
+                      gather_ce_loss, row_parallel, run_blocks,
+                      tp_group, tp_head_loss)
 from .gpt import _rmsnorm, _rope
 
 
@@ -114,52 +121,69 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None, pos_offset=0):
-    B, T, d = x.shape
-    H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None, pos_offset=0,
+           tp=None):
+    """One block on this rank's heads (all of them without a tp group):
+    H and Hkv follow from the local q and kv widths."""
+    B, T, _ = x.shape
+    Dh = cfg.head_dim
     h = _rmsnorm(x, params["ln1_g"][layer])
-    q = (h @ params["attn_q"][layer].to(h.dtype)).reshape(B, T, H, Dh)
-    k, v = (h @ params["attn_kv"][layer].to(h.dtype)).chunk(2, dim=-1)
+    h_in = column_input(h, tp)
+    q = column(h_in, params["attn_q"][layer], h.dtype, tp)
+    H = q.shape[-1] // Dh
+    q = q.reshape(B, T, H, Dh)
+    k, v = column(h_in, params["attn_kv"][layer], h.dtype, tp).chunk(2, dim=-1)
+    Hkv = k.shape[-1] // Dh
     q = _rope(q, cfg.rope_theta, pos_offset)
     k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, Hkv, Dh)
-    att = (attn_fn or _attention)(q, k, v).reshape(B, T, d)
-    x = x + att @ params["attn_out"][layer].to(att.dtype)
+    att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
+    x = x + row_parallel(att, params["attn_out"][layer], tp)
     h = _rmsnorm(x, params["ln2_g"][layer])
-    gated = F.silu(h @ params["mlp_gate"][layer].to(h.dtype)) \
-        * (h @ params["mlp_up"][layer].to(h.dtype))
-    return x + gated @ params["mlp_down"][layer].to(h.dtype)
+    h_in = column_input(h, tp)
+    gated = F.silu(column(h_in, params["mlp_gate"][layer], h.dtype, tp)) \
+        * column(h_in, params["mlp_up"][layer], h.dtype, tp)
+    return x + row_parallel(gated, params["mlp_down"][layer], tp)
 
 
 def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
-           pos_offset: int = 0):
+           pos_offset: int = 0, tp=None):
     """tokens int [B, T] at global positions pos_offset.. -> final-norm
-    hidden states [B, T, d]."""
-    x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
+    hidden states [B, T, d] (the same on every rank of a tp group)."""
+    tp = tp_group(tp)
+    x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
     x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
-                                           pos_offset),
+                                           pos_offset, tp),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 
 
 def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
-            pos_offset: int = 0):
+            pos_offset: int = 0, tp=None):
     """tokens int [B, T] -> logits fp32 [B, T, vocab]: the untied head with
     compute-dtype operands and fp32 accumulation. pos_offset is the global
-    position of the first token."""
-    return matmul_f32(hidden(params, tokens, cfg, attn_fn, remat, pos_offset),
-                      params["head"])
+    position of the first token. With a tp group: this rank's vocab block,
+    [B, T, vocab/tp]."""
+    tp = tp_group(tp)
+    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp)
+    return column(column_input(x, tp), params["head"], x.dtype, tp, f32_out=True)
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
-            pos_offset: int = 0) -> torch.Tensor:
+            pos_offset: int = 0, tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T; pos_offset as in forward."""
+    divide T; pos_offset as in forward. With a tp group the loss is
+    vocab-parallel and the same on every rank; loss_chunk then raises."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
+    tp = tp_group(tp)
+    if tp is not None:
+        return tp_head_loss(hidden(params, tokens, cfg, attn_fn, remat,
+                                   pos_offset, tp),
+                            params["head"], targets, tp, loss_chunk)
     if loss_chunk and T > loss_chunk:
         x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
         return chunked_ce_loss(x, params["head"], targets, loss_chunk)

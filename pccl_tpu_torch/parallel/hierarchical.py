@@ -24,6 +24,15 @@ quantized ring sends from its quantize scratch, not from the stage.
 
 `local_mean` is the intra-node hop for a peer of several cards, one rank
 each, over torch.distributed (parallel/mesh.py).
+
+A peer may be a tensor-parallel group of ranks (`tp=`, a
+models/convert.TpShards): the JAX package's slice as one peer, with more
+than one rank in the slice. The ring's flat vector is then JAX's, the full
+tensors in codec order, which is what `device_get` of a sharded tree
+gives: rank 0 of the tp group gathers the gradient blocks (through pinned
+buffers on gloo) into full tensors, runs the ring AVG with its
+communicator, and scatters each rank's blocks back. Every rank of the
+group calls all_reduce; the others pass comm=None.
 """
 
 from __future__ import annotations
@@ -74,8 +83,17 @@ class HierarchicalAllReduce:
                  quantization: QuantizationAlgorithm = QuantizationAlgorithm.NONE,
                  quantized_dtype: DataType = DataType.UINT8,
                  max_retries: int = 16, shm_staging: bool = False,
-                 windows: int = 1):
+                 windows: int = 1, tp=None):
         self.comm = comm
+        self.tp = tp
+        dev = next(iter(template.values())).device
+        if tp is not None:
+            # the ring runs on rank 0 of the group, over the full tensors
+            if tp.rank != 0 and comm is not None:
+                raise ValueError("only rank 0 of a tp group holds the comm")
+            template = {n: torch.empty(tp.full_shape(n, t.shape), dtype=t.dtype,
+                                       device="meta")
+                        for n, t in template.items()}
         self.quantization = quantization
         self.quantized_dtype = quantized_dtype
         self.max_retries = max_retries
@@ -85,7 +103,6 @@ class HierarchicalAllReduce:
         self._codec = build_codec(template)
         self._vec = self._host = None
         if comm is not None:
-            dev = next(iter(template.values())).device
             n = self._codec.count
             self._vec = torch.empty(n, dtype=torch.float32, device=dev)
             if self.shm_staging:
@@ -101,7 +118,17 @@ class HierarchicalAllReduce:
     @torch.no_grad()
     def all_reduce(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Replace each tensor of `grads` by its mean across the group, in
-        place; returns `grads`. Returns at once when there is no comm."""
+        place; returns `grads`. Returns at once when there is no comm and
+        no tp group. With a tp group, every rank of it takes part."""
+        if self.tp is not None:
+            full = self.tp.gather(grads, dst=0)
+            if full is not None:
+                self._reduce(full)
+            self.tp.scatter(full, grads, src=0)
+            return grads
+        return self._reduce(grads)
+
+    def _reduce(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.comm is None:
             return grads
         self._codec.flat_into(grads, self._vec)

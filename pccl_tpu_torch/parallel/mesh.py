@@ -8,13 +8,22 @@ Ranks are laid out row-major over the mesh's shape, as `make_mesh` in the
 JAX package reshapes its device list: for axes ("dp", "sp") of shape
 (D, S), rank i_dp * S + i_sp sits at (i_dp, i_sp).
 
-The tensor-parallel sharding rules of the JAX module wait for the tp port.
+The tensor-parallel rules of the JAX module (`GPT_PARAM_SPECS`,
+`LLAMA_PARAM_SPECS`: which dim of each parameter is split over "tp") are
+kept as data; models/convert.py cuts the blocks a rank holds. Where XLA
+inserts the collectives of a sharded program, a rank of the port calls
+them itself, as autograd Functions over a process group:
+`copy_to` (identity, backward SUM: the input of a column-parallel
+product), `reduce_from` (SUM, backward identity: the output of a
+row-parallel product) and `all_to_all` (lax.all_to_all over dim 0, its own
+transpose).
 
-Gloo's send and receive take host tensors only, so `P2PRing` stages a card
-tensor through pinned host buffers (allocated once for each slot and
-shape), and several ranks can then share one card, each a process: NCCL
-refuses two ranks on one device. The backend is the caller's choice
-(`make_mesh(backend=)`).
+Gloo's send, receive, all_to_all, gather and scatter take host tensors
+only, so card tensors cross them through pinned host buffers (allocated
+once for each role, slot and shape; `HostStage`), and several ranks can
+then share one card, each a process: NCCL refuses two ranks on one device.
+Gloo's all_reduce and broadcast take card tensors and stage them
+themselves. The backend is the caller's choice (`make_mesh(backend=)`).
 """
 
 from __future__ import annotations
@@ -44,6 +53,264 @@ def factor_mesh(n: int, n_axes: int = 2) -> Tuple[int, ...]:
     return tuple(dims)
 
 
+# --- the tensor-parallel rules (pccl_tpu/parallel/mesh.py), as data: each
+# parameter's spec names the mesh axis of each of its dims, or None
+
+GPT_PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
+    # vocab-parallel embedding (Megatron-style); the tied head is its
+    # transpose
+    "tok_emb": ("tp", None),
+    "ln1_g": (None, None),
+    "ln2_g": (None, None),
+    # column-parallel in-projections: output features over tp
+    "attn_qkv": (None, None, "tp"),
+    "mlp_in": (None, None, "tp"),
+    # row-parallel out-projections: input features over tp
+    "attn_out": (None, "tp", None),
+    "mlp_out": (None, "tp", None),
+    "lnf_g": (None,),
+}
+
+# present only with GPTConfig.untie_head: vocab-parallel, like Llama's
+_GPT_HEAD_SPEC: Tuple[Optional[str], ...] = (None, "tp")
+
+LLAMA_PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
+    "tok_emb": ("tp", None),
+    "ln1_g": (None, None),
+    "ln2_g": (None, None),
+    # column-parallel in-projections (q, grouped kv, both MLP branches)
+    "attn_q": (None, None, "tp"),
+    "attn_kv": (None, None, "tp"),
+    "mlp_gate": (None, None, "tp"),
+    "mlp_up": (None, None, "tp"),
+    # row-parallel out-projections
+    "attn_out": (None, "tp", None),
+    "mlp_down": (None, "tp", None),
+    "lnf_g": (None,),
+    "head": (None, "tp"),  # untied unembedding: vocab-parallel
+}
+
+
+def param_specs(llama: bool, untie_head: bool = False) -> Dict[str, tuple]:
+    """The specs of a family's parameters (GPT's head only when untied)."""
+    if llama:
+        return dict(LLAMA_PARAM_SPECS)
+    specs = dict(GPT_PARAM_SPECS)
+    if untie_head:
+        specs["head"] = _GPT_HEAD_SPEC
+    return specs
+
+
+class HostStage:
+    """Pinned host buffers for card tensors crossing a backend that takes
+    host tensors only: one buffer for each (role, slot, shape, dtype),
+    made at its first use and kept."""
+
+    def __init__(self):
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+
+    def __call__(self, role: str, slot: int, shape, dtype) -> torch.Tensor:
+        key = (role, slot, tuple(shape), dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+            self._buffers[key] = buf
+        return buf
+
+
+_STAGES: Dict[int, HostStage] = {}
+
+
+def _stage_of(group) -> HostStage:
+    return _STAGES.setdefault(id(group), HostStage())
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Whether a card tensor must cross `group` through host buffers: on
+    any backend but NCCL."""
+    return t.is_cuda and dist.get_backend(group) != "nccl"
+
+
+# the autograd collectives' calls and bytes sent since the last
+# reset_collective_stats(); with timed=True there, also their host seconds,
+# each call first waiting for the card's queue to drain so that the seconds
+# are the exchange's and its staging's. That wait is a synchronize a
+# collective, so only a measurement asks for it.
+collective_stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
+_timed = False
+
+
+def reset_collective_stats(timed: bool = False) -> None:
+    global _timed
+    _timed = timed
+    collective_stats.update(calls=0, seconds=0.0, bytes=0)
+
+
+def _counted(fn, t: torch.Tensor):
+    """fn() for a collective over t, counted in collective_stats."""
+    if not _timed:
+        out = fn()
+    else:
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        collective_stats["seconds"] += time.perf_counter() - t0
+    collective_stats["calls"] += 1
+    collective_stats["bytes"] += t.numel() * t.element_size()
+    return out
+
+
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """dist.all_reduce of t in place over group, counted; returns t."""
+    _counted(lambda: dist.all_reduce(t, op=op, group=group), t)
+    return t
+
+
+def group_size(group) -> int:
+    """The number of ranks of `group`; 1 for None."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel product: x itself in the forward; in
+    the backward the SUM of its cotangents over `group`, since each rank's
+    product saw only its block of the output features. Every rank of the
+    group must call it (the identity for None or a group of 1)."""
+    return x if group_size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The output of a row-parallel product: the SUM of the ranks' partial
+    results in the forward (the same bytes on every rank); the identity in
+    the backward, since each rank's loss is already the whole loss. Every
+    rank of the group must call it."""
+    return x if group_size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def _all_to_all_raw(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+
+    def exchange():
+        if not _staged(group, x):
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=group)
+            return out
+        stage = _stage_of(group)
+        send = stage("a2a_send", 0, x.shape, x.dtype).copy_(x)
+        recv = stage("a2a_recv", 0, x.shape, x.dtype)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv.to(x.device)
+
+    return _counted(exchange, x)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_raw(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """lax.all_to_all(x, axis, 0, 0) over `group`: x [S·k, ...] is cut
+    into S blocks along dim 0, block j goes to rank j, and the result
+    stacks the blocks received, in rank order. Its own transpose, so the
+    backward is the same exchange. Card tensors cross gloo through pinned
+    buffers, one pair for each shape."""
+    n = group_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 ({x.shape[0]}) does not split over {n} ranks")
+    return x if n == 1 else _AllToAll.apply(x, group)
+
+
+@torch.no_grad()
+def gather_to(x: torch.Tensor, group, dst: int = 0) -> Optional[list]:
+    """Every rank's x (same shape and dtype) on the group's rank `dst`, in
+    rank order, on x's device; None on the other ranks. Card tensors cross
+    gloo through pinned buffers."""
+    n, me = group_size(group), dist.get_rank(group)
+    if n == 1:
+        return [x]
+    x = x.contiguous()
+    staged = _staged(group, x)
+    stage = _stage_of(group)
+    src = stage("gather_send", 0, x.shape, x.dtype).copy_(x) if staged else x
+    outs = None
+    if me == dst:
+        outs = [stage("gather_recv", i, x.shape, x.dtype) if staged
+                else torch.empty_like(x) for i in range(n)]
+    dist.gather(src, outs, dst=dist.get_global_rank(group, dst), group=group)
+    if outs is None:
+        return None
+    return [o.to(x.device) for o in outs] if staged else outs
+
+
+@torch.no_grad()
+def gather_all(x: torch.Tensor, group) -> list:
+    """Every rank's x (same shape and dtype), in rank order, on every rank
+    of the group, on x's device."""
+    n = group_size(group)
+    if n == 1:
+        return [x]
+    x = x.contiguous()
+    if not _staged(group, x):
+        outs = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(outs, x, group=group)
+        return outs
+    stage = _stage_of(group)
+    src = stage("gather_send", 0, x.shape, x.dtype).copy_(x)
+    outs = [stage("gather_recv", i, x.shape, x.dtype) for i in range(n)]
+    dist.all_gather(outs, src, group=group)
+    return [o.to(x.device) for o in outs]
+
+
+@torch.no_grad()
+def scatter_from(parts: Optional[Sequence[torch.Tensor]], out: torch.Tensor,
+                 group, src: int = 0) -> torch.Tensor:
+    """Write rank i's part of `parts` (given on the group's rank `src`, in
+    rank order, each shaped as `out`) into `out` on every rank i, in
+    place; returns out."""
+    n, me = group_size(group), dist.get_rank(group)
+    if n == 1:
+        return out.copy_(parts[0])
+    staged = _staged(group, out)
+    stage = _stage_of(group)
+    recv = stage("scatter_recv", 0, out.shape, out.dtype) if staged \
+        else torch.empty_like(out)
+    ins = None
+    if me == src:
+        ins = [stage("scatter_send", i, out.shape, out.dtype).copy_(p) if staged
+               else p.contiguous() for i, p in enumerate(parts)]
+    dist.scatter(recv, ins, src=dist.get_global_rank(group, src), group=group)
+    return out.copy_(recv)
+
+
 class P2PRing:
     """Neighbour exchange around one process group: `shift` sends to the
     next rank of the group and receives from the previous (or the reverse),
@@ -62,18 +329,10 @@ class P2PRing:
         self.stage = dist.get_backend(group) != "nccl"
         self._peers = {d: dist.get_global_rank(group, (self.rank + d) % self.size)
                        for d in (1, -1)}
-        self._buffers: Dict[tuple, torch.Tensor] = {}
+        self._host = HostStage()
         self.seconds = 0.0
         self.stage_seconds = 0.0
         self.bytes = 0
-
-    def _host(self, role: str, slot: int, like: torch.Tensor) -> torch.Tensor:
-        key = (role, slot, tuple(like.shape), like.dtype)
-        buf = self._buffers.get(key)
-        if buf is None:
-            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
-            self._buffers[key] = buf
-        return buf
 
     def shift(self, tensors: Sequence[torch.Tensor], direction: int = 1) -> list:
         """Each tensor sent `direction` (+1 or -1) ranks along the group;
@@ -89,9 +348,10 @@ class P2PRing:
             torch.cuda.current_stream(tensors[0].device).synchronize()
         t0 = time.perf_counter()
         if staged:
-            sends = [self._host("send", i, t).copy_(t)
+            sends = [self._host("send", i, t.shape, t.dtype).copy_(t)
                      for i, t in enumerate(tensors)]
-            recvs = [self._host("recv", i, t) for i, t in enumerate(tensors)]
+            recvs = [self._host("recv", i, t.shape, t.dtype)
+                     for i, t in enumerate(tensors)]
         else:
             sends = tensors
             recvs = [torch.empty_like(t) for t in tensors]

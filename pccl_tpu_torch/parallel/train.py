@@ -17,6 +17,17 @@ sharded one read per rank: each rank takes its block of the global batch
 and the gradients are averaged over those ranks before the update.
 `opt_state_leaves` puts AdamW's state in optax's leaf order, the shared
 state a DDP peer offers and a late joiner adopts.
+
+A mesh with a "tp" axis of more than one rank adds tensor parallelism:
+each rank keeps its block of every parameter (models/convert.py's
+per-head layout) and runs the model on it with the axis's group; AdamW is
+elementwise, so its update of the blocks is the full update cut in
+blocks. Gradients are averaged over "dp" (and `seq_axis`) only: the tp
+collectives inside the model already give each rank its blocks' whole
+gradient, and the replicated gains get the same bytes on every tp rank.
+`gathered_state` and `load_gathered_state` give and take the full
+tensors (parameters by name, AdamW's state in optax's leaf order) on one
+rank of the tp group, for a DDP peer made of several ranks.
 """
 
 from __future__ import annotations
@@ -68,15 +79,31 @@ def cosine_warmup_schedule(lr: float, total_steps: int, warmup_steps: int = 0,
     return schedule
 
 
+def tp_shards(cfg, mesh, axis: str = "tp"):
+    """models/convert.TpShards over the mesh's tp axis, or None where the
+    mesh has none or it holds one rank."""
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return None
+    from ..models.convert import TpShards
+
+    return TpShards(cfg, mesh, axis)
+
+
 def make_train_state(seed: int, cfg, device="cuda",
                      lr: float = 3e-4, schedule=None,
-                     params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+                     params: Optional[Dict[str, torch.Tensor]] = None,
+                     mesh=None) -> TrainState:
     """Parameters (from `seed`, made on the CPU so every device gets the
-    same numbers, or the given `params`) on `device`, with AdamW and the
-    optional schedule (step -> lr, used instead of the constant lr)."""
+    same numbers, or the given full `params`) on `device`, with AdamW and
+    the optional schedule (step -> lr, used instead of the constant lr).
+    With a mesh whose "tp" axis has several ranks, this rank keeps only its
+    blocks of the full parameters."""
     dev = resolve_device(device)
     if params is None:
         params = family(cfg).init_params(torch.Generator().manual_seed(seed), cfg)
+    tp = tp_shards(cfg, mesh)
+    if tp is not None:
+        params = tp.shard(params)
     params = {k: v.detach().to(dev, torch.float32).requires_grad_(True)
               for k, v in params.items()}
     opt = torch.optim.AdamW(list(params.values()), lr=lr, betas=(0.9, 0.95),
@@ -161,11 +188,13 @@ def build_loss_and_grad(cfg, attn_fn=None, remat=False,
     parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh and
     seq_axis as in build_train_step."""
     model = family(cfg)
+    shards = tp_shards(cfg, mesh)
+    tp = None if shards is None else shards.group
 
     def run(state: TrainState, tokens, targets, pos_offset: int = 0):
         def micro(state: TrainState, tokens, targets):
             loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn,
-                                 remat, loss_chunk, pos_offset)
+                                 remat, loss_chunk, pos_offset, tp=tp)
             loss.backward()
             return loss.detach()
 
@@ -217,7 +246,10 @@ def build_train_step(cfg, attn_fn=None, remat=False,
     (pccl_tpu/parallel/train.py:build_train_step with seq_axis). Every
     rank starts from the same parameters and keeps them bitwise equal.
     Under remat the backward replays a block's ring hops, in the same order
-    on every rank."""
+    on every rank. A "tp" axis runs the model tensor-parallel over its
+    group on the state's blocks (make_train_state(mesh=)); the tp ranks
+    take the same batch rows, and remat replays the tp collectives in one
+    order on every rank."""
     loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk,
                                         accum_steps, mesh, seq_axis)
 
@@ -295,3 +327,55 @@ def load_opt_state_leaves(state: TrainState, leaves) -> None:
         for group, base, fn in zip(state.optimizer.param_groups,
                                    sched.base_lrs, sched.lr_lambdas):
             group["lr"] = base * fn(count)
+
+
+# ------------------------------------------------------------ gathered state
+
+def gathered_state(state: TrainState, tp, dst: int = 0):
+    """(full parameters by name, AdamW's leaves in optax's order with full
+    mu and nu) on rank dst of the tp group (convert.TpShards), (None, None)
+    on its other ranks; every rank of the group must call it. Without tp
+    (None) the state's own tensors."""
+    leaves = opt_state_leaves(state)
+    if tp is None:
+        return dict(state.params), leaves
+    names = sorted(state.params)
+    n = len(names)
+    params = tp.gather(state.params, dst)
+    mu = tp.gather(dict(zip(names, leaves[1:1 + n])), dst)
+    nu = tp.gather(dict(zip(names, leaves[1 + n:1 + 2 * n])), dst)
+    if params is None:
+        return None, None
+    return params, ([leaves[0]] + [mu[k] for k in names]
+                    + [nu[k] for k in names] + leaves[1 + 2 * n:])
+
+
+@torch.no_grad()
+def load_gathered_state(state: TrainState, tp, params, leaves,
+                        src: int = 0) -> None:
+    """Write full parameters and leaves (gathered_state's form, given on
+    rank src of the tp group, None elsewhere) into every rank's blocks:
+    each rank's blocks scattered, the count broadcast. Every rank of the
+    group must call it. Without tp: copied in place."""
+    if tp is None:
+        for name, p in state.params.items():
+            if p is not params[name]:
+                p.copy_(params[name])
+        load_opt_state_leaves(state, leaves)
+        return
+    names = sorted(state.params)
+    n = len(names)
+    own = opt_state_leaves(state)
+    full = tp.rank == src
+    tp.scatter(params if full else None, state.params, src)
+    tp.scatter(dict(zip(names, leaves[1:1 + n])) if full else None,
+               dict(zip(names, own[1:1 + n])), src)
+    tp.scatter(dict(zip(names, leaves[1 + n:1 + 2 * n])) if full else None,
+               dict(zip(names, own[1 + n:1 + 2 * n])), src)
+    count = (leaves[0] if full else own[0]).to("cpu", torch.int64).reshape(1)
+    torch.distributed.broadcast(
+        count, torch.distributed.get_global_rank(tp.group, src), group=tp.group)
+    own[0] = count.to(torch.int32).reshape(())
+    if state.scheduler is not None:
+        own[-1] = own[0]
+    load_opt_state_leaves(state, own)

@@ -1,5 +1,6 @@
 """A gloo world of spawned ranks for the port's collective tests, and the
-cases each rank runs (tests/test_torch_sp.py, tests/test_torch_quantized.py).
+cases each rank runs (tests/test_torch_sp.py, tests/test_torch_quantized.py,
+tests/test_torch_tp.py, tests/test_torch_pipeline.py, tests/test_torch_moe.py).
 
 `run_world(cases, inputs)` spawns `world` processes on the CPU, joins them
 into one torch.distributed gloo group through a FileStore, and has each run
@@ -249,4 +250,214 @@ def sp_cases(rank: int, inputs: dict) -> dict:
     _run_case(res, "llama_fp32", lambda: forward(llama, "llama", torch.float32))
     _run_case(res, "train", steps)
     _run_case(res, "remat", remat_grads)
+    return res
+
+
+# ------------------------------------------------------------ tensor parallel
+
+def _tp_params(mod, np_params, dtype, mesh=None, tp_cfg=None):
+    """(cfg, full params on the CPU) from a tiny JAX config's numpy
+    weights, or (cfg, this rank's blocks) with a mesh."""
+    import torch
+
+    from pccl_tpu_torch.models import convert
+
+    cfg = tp_cfg or mod.tiny_config(block_size=64, compute_dtype=dtype)
+    full = convert.params_from_numpy(np_params, cfg, device="cpu")
+    if mesh is None:
+        return cfg, full
+    return cfg, convert.shard_params(full, cfg, mesh)
+
+
+def tp_cases(rank: int, inputs: dict) -> dict:
+    import torch
+
+    from pccl_tpu_torch.models import convert, gpt, llama
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import train
+
+    res = {}
+    layouts = {}
+    for name, axes, shape in inputs["layouts"]:
+        m = mesh_lib.make_mesh(axes, shape, backend="gloo")
+        layouts[name] = (dict(m.shape), dict(m.coords))
+    res["layouts"] = layouts
+    tp4 = mesh_lib.make_mesh(("dp", "tp"), (1, 4), backend="gloo")
+    tp2 = mesh_lib.make_mesh(("dp", "tp"), (2, 2), backend="gloo")
+    meshes = {2: tp2, 4: tp4}
+
+    def roundtrip(mod, tp, **over):
+        cfg = mod.tiny_config(**over)
+        full = mod.init_params(torch.Generator().manual_seed(tp), cfg)
+        local = convert.shard_params(full, cfg, meshes[tp])
+        back = convert.gather_params(local, cfg, meshes[tp])
+        return {"equal": all(torch.equal(back[k], full[k]) for k in full),
+                "local": {k: _np(v) for k, v in local.items()},
+                "full": {k: _np(v) for k, v in full.items()}}
+
+    def forward(mod, key, dtype, mesh):
+        np_params, tokens = inputs[key]
+        cfg, local = _tp_params(mod, np_params, dtype, mesh)
+        tok, _ = mesh_lib.local_batch(torch.from_numpy(tokens), mesh)
+        with torch.no_grad():
+            return _np(mod.forward(local, tok, cfg, tp=mesh.group("tp")))
+
+    def steps(mod, key):
+        np_params, batches, lr = inputs[key]
+        cfg, full = _tp_params(mod, np_params, torch.float32)
+        state = train.make_train_state(0, cfg, "cpu", lr=lr, params=full,
+                                       mesh=tp2)
+        step = train.build_train_step(cfg, mesh=tp2)
+        losses = [step(state, torch.from_numpy(tok), torch.from_numpy(tgt)).item()
+                  for tok, tgt in batches]
+        gathered = convert.gather_params(state.params, cfg, tp2)
+        gains = {k: _np(state.params[k]) for k in ("ln1_g", "ln2_g", "lnf_g")}
+        return losses, {k: _np(v) for k, v in gathered.items()}, gains
+
+    def grads(mod, key, mesh, remat=False, tp=True):
+        np_params, batches, _ = inputs[key]
+        cfg, full = _tp_params(mod, np_params, torch.float32)
+        state = train.make_train_state(0, cfg, "cpu", params=full,
+                                       mesh=mesh if tp else None)
+        lg = train.build_loss_and_grad(cfg, remat=remat,
+                                       mesh=mesh if tp else None)
+        tok, tgt = (torch.from_numpy(a) for a in batches[0])
+        loss = lg(state, tok, tgt).item()
+        gr = {n: p.grad for n, p in state.params.items()}
+        if tp:
+            gr = convert.gather_params(gr, cfg, mesh)
+        return loss, {n: _np(g) for n, g in gr.items()}
+
+    def transposes():
+        # the unsharded gradient on every rank alone, then the tp=4 one
+        return {"full": grads(gpt, "train_gpt", tp4, tp=False),
+                "tp": grads(gpt, "train_gpt", tp4)}
+
+    def remat():
+        return {str(m): grads(llama, "train_llama", tp2, remat=m)
+                for m in (False, True, "dots", "sqrt")}
+
+    def chunk_raises():
+        np_params, batches, _ = inputs["train_gpt"]
+        cfg, local = _tp_params(gpt, np_params, torch.float32, tp4)
+        tok, tgt = (torch.from_numpy(a) for a in batches[0])
+        try:
+            gpt.loss_fn(local, tok, tgt, cfg, loss_chunk=32, tp=tp4.group("tp"))
+        except NotImplementedError as e:
+            return str(e)
+        return None
+
+    for fam, mod in (("gpt", gpt), ("llama", llama)):
+        for tp in (2, 4):
+            over = {"n_kv_head": 4} if mod is llama and tp == 4 else {}
+            _run_case(res, f"roundtrip_{fam}_{tp}",
+                      lambda mod=mod, tp=tp, over=over: roundtrip(mod, tp, **over))
+    _run_case(res, "gpt_fp32", lambda: forward(gpt, "gpt", torch.float32, tp4))
+    _run_case(res, "gpt_bf16", lambda: forward(gpt, "gpt", torch.bfloat16, tp4))
+    _run_case(res, "llama_fp32", lambda: forward(llama, "llama", torch.float32, tp2))
+    _run_case(res, "llama_bf16", lambda: forward(llama, "llama", torch.bfloat16, tp2))
+    _run_case(res, "train_gpt", lambda: steps(gpt, "train_gpt"))
+    _run_case(res, "train_llama", lambda: steps(llama, "train_llama"))
+    _run_case(res, "transposes", transposes)
+    _run_case(res, "remat", remat)
+    _run_case(res, "chunk_raises", chunk_raises)
+    return res
+
+
+# ------------------------------------------------------------ pipeline
+
+def pp_cases(rank: int, inputs: dict) -> dict:
+    import torch
+
+    from pccl_tpu_torch.models import convert, gpt
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import pipeline
+
+    res = {}
+    meshes = {2: mesh_lib.make_mesh(("dp", "pp"), (2, 2), backend="gloo"),
+              4: mesh_lib.make_mesh(("dp", "pp"), (1, 4), backend="gloo")}
+
+    def params_of(key, dtype, mesh):
+        np_params, tokens = inputs[key]
+        cfg = gpt.GPTConfig(**inputs["cfg"], compute_dtype=dtype)
+        full = convert.params_from_numpy(np_params, cfg, device="cpu")
+        local = {**full, **pipeline.shard_layer_params(
+            {k: full[k] for k in gpt._LAYER_KEYS}, mesh)}
+        return cfg, local, torch.from_numpy(tokens)
+
+    def forward(S, M, dtype):
+        mesh = meshes[S]
+        cfg, local, tok = params_of("fwd", dtype, mesh)
+        with torch.no_grad():
+            return _np(pipeline.build_pipelined_forward(
+                cfg, mesh, microbatches=M)(local, tok))
+
+    def grads():
+        mesh = meshes[2]
+        cfg, local, tok = params_of("grad", torch.float32, mesh)
+        local = {k: v.requires_grad_(True) for k, v in local.items()}
+        logits = pipeline.build_pipelined_forward(cfg, mesh)(local, tok)
+        loss = -torch.log_softmax(logits, -1).gather(
+            -1, tok[..., None].long())[..., 0].mean()
+        loss.backward()
+        layers = {k: mesh_lib.gather_all(local[k].grad, mesh.group("pp"))
+                  for k in gpt._LAYER_KEYS}
+        out = {k: _np(torch.cat(v)) for k, v in layers.items()}
+        out.update({k: _np(local[k].grad) for k in ("tok_emb", "lnf_g")})
+        return loss.item(), out
+
+    for S, M in inputs["schedules"]:
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            _run_case(res, f"fwd_{S}_{M}_{name}",
+                      lambda S=S, M=M, dt=dt: forward(S, M, dt))
+    _run_case(res, "grads", grads)
+    return res
+
+
+# ------------------------------------------------------------ MoE
+
+def moe_cases(rank: int, inputs: dict) -> dict:
+    import torch
+
+    from pccl_tpu_torch.ops import moe
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+
+    res = {}
+    meshes = {2: mesh_lib.make_mesh(("dp", "ep"), (2, 2), backend="gloo"),
+              4: mesh_lib.make_mesh(("dp", "ep"), (1, 4), backend="gloo")}
+
+    def run(key, S, cf, grad=False):
+        np_params, x = inputs[key]
+        mesh = meshes[S]
+        params = {k: torch.from_numpy(v) for k, v in np_params.items()}
+        local = moe.shard_moe_params(params, mesh)
+        b = x.shape[0] // S
+        r = mesh.rank("ep")
+        xl = torch.from_numpy(x[r * b:(r + 1) * b])
+        if grad:
+            local = {k: v.requires_grad_(True) for k, v in local.items()}
+            xl.requires_grad_(True)
+        out = moe.moe_mlp_ep(xl, local, mesh, capacity_factor=cf,
+                             compute_dtype=torch.float32)
+        got = {"out": _np(out)}
+        # this rank's routing: (expert, slot) of each token, -1 if dropped
+        C = moe.capacity_ep(xl.shape[0] * xl.shape[1], cf, params["gate"].shape[-1])
+        dispatch, _ = moe._route(xl.detach().reshape(-1, xl.shape[-1]),
+                                 params["gate"], C)
+        flat = dispatch.reshape(dispatch.shape[0], -1)
+        hit = flat.sum(-1) > 0
+        idx = flat.argmax(-1)
+        got["route"] = torch.stack([torch.where(hit, idx // C, -1),
+                                    torch.where(hit, idx % C, -1)], -1).numpy()
+        if grad:
+            (out ** 2).sum().backward()
+            got["grads"] = {k: _np(v.grad) for k, v in local.items()}
+            got["dx"] = _np(xl.grad)
+        return got
+
+    for S, E in inputs["configs"]:
+        _run_case(res, f"ep_{S}_{E}", lambda S=S, E=E: run(f"moe_{E}", S, float(E)))
+    _run_case(res, "grads", lambda: run("grad", 2, 4.0, grad=True))
+    _run_case(res, "drops", lambda: run("grad", 2, 0.01))
+    _run_case(res, "ragged", lambda: run("ragged", 4, 1.0))
     return res
