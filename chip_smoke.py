@@ -19,8 +19,9 @@ Phases, in order; any failure exits non-zero:
    non-causal shape, phase 7's Llama-700m shape, phase 13's ring
    steps (causal and not, and at Dh 128 with GQA), phase 14's tp
    ranks' blocks (Llama-700m at tp=4: 3 q heads over 1 kv head; GPT-2 at
-   tp=2: 6 heads, at B=8 and at the (2, 2) mesh's B=2) and phase 15's
-   pipeline stages (one GPT-2 sequence);
+   tp=2: 6 heads, at B=8 and at the (2, 2) mesh's B=2), phase 15's
+   pipeline stages (one GPT-2 sequence) and phase 18a's Llama-700m peer
+   of 2 tp ranks (6 q heads over 2 kv heads, `tp2_llama`);
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
@@ -46,7 +47,8 @@ Phases, in order; any failure exits non-zero:
 6. main path, DDP with shared-state sync hashed by H1: a master and two
    `train_ddp` peers (GPT-2 124M, B=8, T=1024, PCCLT_SS_HASH=simple-tpu;
    the first stages its gradients through registered shm, --shm-staging,
-   the others through pinned buffers), and a third that starts once the first has logged step 2 and adopts the
+   the others through pinned buffers; 48 steps), and a third that starts
+   once the first has logged step 2 and adopts the
    cohort's parameters and AdamW state. Syncs move no bytes before it
    comes and after it adopted; it receives every entry's bytes; the three
    print equal digests at every common step and equal final parameters;
@@ -170,7 +172,25 @@ Phases, in order; any failure exits non-zero:
    agree at every step, every sync after the first move 0 bytes, the
    final params_blake2b agree and the loss fall; every rank of each peer
    must launch K1-K3 at every step (rank 0 gathers the counts); logs
-   ring_s, sync_s and gather_s.
+   ring_s, sync_s and gather_s;
+18. the DiLoCo peers' in-peer mesh (`--ranks N`: N processes on the
+   mesh factor_mesh(N) over (dp, tp), rank 0 holding the comm and the
+   whole outer state, gathering the ranks' blocks for each outer step and
+   scattering them back): 18a, sync DiLoCo on Llama-700m (B=2, T=2048,
+   2 inner and 2 outer steps), a peer of 2 ranks (tp=2: K1-K3 at 6 q
+   heads over 2 kv heads) beside a peer of 1, both on data shard 0, and
+   a master; the 2-rank peer's loss at each outer step after the first
+   (the steps that start from a scatter) must be within MESH_LOSS_GAP of
+   the 1-rank peer's; 18b, async
+   DiLoCo on GPT-2 124M (B=8, T=1024, 4 inner and 3 outer steps), two
+   peers of 2 ranks; 18c, phase 11's grid at 4 outer steps with one cell
+   of each group at 2 ranks. Each peer of 2 ranks must log both ranks on
+   the card; every rank of every peer must launch K1-K3 at every outer
+   step; digests must be equal across the peers at every outer step (and
+   after the async finish()), the grid's within each group, and every
+   grid sync after the first must move 0 bytes. Logs tok_s, outer_s,
+   gather_s and scatter_s (the outer step's gather to rank 0 and scatter
+   back), join_s, each rank's launches and the peaks.
 
 Every peer's FINAL line reports its own peak host RSS: each is started
 through a relay that forks it (utils/rss.relay_argv): a user-space kernel
@@ -243,6 +263,8 @@ SHAPES = [
     # pipeline stages (a microbatch of one GPT-2 sequence)
     ("tp_dp", dict(B=2, T=1024, H=6, Hkv=6, D=64, causal=True)),
     ("pp", dict(B=1, T=1024, H=12, Hkv=12, D=64, causal=True)),
+    # phase 18a's Llama-700m peer of 2 tp ranks: 6 q heads over 2 kv heads
+    ("tp2_llama", dict(B=2, T=2048, H=6, Hkv=2, D=128, causal=True)),
 ]
 WITH_LSE_SHAPES = ("sp", "sp_causal", "sp_gqa")
 
@@ -264,7 +286,9 @@ TOL = {  # name: (rel, atol, rtol)
 HOST_LEAD_CYCLES = 10_000_000
 
 MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
-DDP = dict(model="gpt2", block=1024, batch=8, steps=80)
+# 48 steps: the late joiner adopts near step 14 and must train 10 or more
+# with the others (80 until the smoke grew phase 18)
+DDP = dict(model="gpt2", block=1024, batch=8, steps=48)
 ASYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=8,
              outer_steps=3)
 LLAMA700M_PARAMS = 702_359_040
@@ -273,6 +297,14 @@ PEER_TIMEOUT_S = 600
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(name: str, fn):
+    """fn(), logging its seconds as phase `name`."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 class SmokeError(RuntimeError):
@@ -1542,23 +1574,24 @@ def phase_ddp_resume() -> dict:
 
 # 12 outer steps: from random init at GPT-2 width AdamW at 1e-3 swings the
 # loss by ~0.2 nats a step; over 3 outer steps one cell of four did not
-# learn, over 8 one fell by only 0.14 nats
+# learn, over 8 one fell by only 0.08 nats
 GRID = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=12,
             shards=2, replicas=2)
 GRID_LINE = re.compile(
     r"^outer (\d+) loss (\S+) grid (\d+)x(\d+) global (\d+) shard (\d+) "
     r"\[(\d+):(\d+)\] tok_s (\S+) outer_s (\S+) launches (\d+) (\d+) (\d+) "
-    r"digest (\w+) tx (\d+) rx (\d+)$", re.M)
+    r"digest (\w+) tx (\d+) rx (\d+)"
+    r"(?: gather_s (\S+) scatter_s (\S+) rank_launches (\S+))?$", re.M)
 GRID_FINAL = re.compile(r"^FINAL first_loss=(\S+) last_loss=(\S+) "
                         r"last_sync_tx=(\d+) last_sync_rx=(\d+)"
                         r"(?: peak_alloc_mib=(\d+))? peak_rss_mib=(\d+)$", re.M)
 
 
-def phase_grid(dev: str = "cuda") -> dict:
+def phase_grid(dev: str = "cuda", gr: dict = GRID, tag: str = "11") -> dict:
     """A master and a 2 x 2 grid of `grid_diloco` cells on the card (two
     outer-state shards, two replicas each), sharing one grid file; returns
-    the launch totals and each cell's rows."""
-    gr = GRID
+    the launch totals and each cell's rows. gr["ranks"], where given, is
+    each replica's --ranks (phase 18c)."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     # the file holds the full fp32 outer vector; /dev/shm as the JAX
@@ -1566,9 +1599,10 @@ def phase_grid(dev: str = "cuda") -> dict:
     need = 2 * GPT2_PARAM_BYTES
     shm = Path("/dev/shm")
     where = shm if shm.is_dir() and shutil.disk_usage(shm).free > need else LOG_DIR
-    grid_file = where / f"pcclt_grid_smoke_{os.getpid()}.bin"
-    names = [f"grid{g}{r}.log" for g in range(gr["shards"])
+    grid_file = where / f"pcclt_grid_smoke_{tag}_{os.getpid()}.bin"
+    names = [f"grid{tag}_{g}{r}.log" for g in range(gr["shards"])
              for r in range(gr["replicas"])]
+    ranks = gr.get("ranks", [1] * gr["replicas"])
     procs, files, cells = [], [], []
     try:
         port = start_master(procs, files, env)
@@ -1584,7 +1618,9 @@ def phase_grid(dev: str = "cuda") -> dict:
                 "--block", str(gr["block"]), "--batch", str(gr["batch"]),
                 "--inner-steps", str(gr["inner_steps"]),
                 "--outer-steps", str(gr["outer_steps"]), "--device", dev,
-                "--attn", "flash" if dev == "cuda" else "dense"]))
+                "--attn", "flash" if dev == "cuda" else "dense",
+                "--ranks", str(ranks[i % gr["replicas"]]),
+                *([] if gr.get("descent", True) else ["--no-descent-check"])]))
         wait_all(cells, time.time() + PEER_TIMEOUT_S)
     finally:
         for p in procs:
@@ -1599,10 +1635,10 @@ def phase_grid(dev: str = "cuda") -> dict:
         final = GRID_FINAL.search(text)
         if p.returncode != 0 or final is None:
             # exit 4: the last loss was not below the first
-            raise SmokeError(f"11: grid cell {names[i]} exited {p.returncode}")
+            raise SmokeError(f"{tag}: grid cell {names[i]} exited {p.returncode}")
         r = GRID_LINE.findall(text)
         if len(r) != gr["outer_steps"]:
-            raise SmokeError(f"11: {names[i]} logged {len(r)} outer steps")
+            raise SmokeError(f"{tag}: {names[i]} logged {len(r)} outer steps")
         rows.append(r)
         finals.append(final.groups())
     totals = {name: 0 for name in FLASH}
@@ -1613,32 +1649,39 @@ def phase_grid(dev: str = "cuda") -> dict:
         for step, row in enumerate(r):
             if (f"{row[2]}x{row[3]}", int(row[4]), int(row[5])) != (full, world, g) \
                     or not math.isfinite(float(row[1])):
-                raise SmokeError(f"11: {names[i]} outer step {step}: {row}")
+                raise SmokeError(f"{tag}: {names[i]} outer step {step}: {row}")
             if step and (row[14], row[15]) != ("0", "0"):
-                raise SmokeError(f"11: {names[i]}'s sync at outer step {step} "
+                raise SmokeError(f"{tag}: {names[i]}'s sync at outer step {step} "
                                  f"moved tx {row[14]} rx {row[15]} bytes")
             for name, n in zip(FLASH, row[10:13]):
                 if int(n) <= 0:
-                    raise SmokeError(f"11: {names[i]}: {name} never launched")
+                    raise SmokeError(f"{tag}: {names[i]}: {name} never launched")
                 totals[name] += int(n)
+            check_rank_launches(f"{tag}: {names[i]} outer step {step}",
+                                row[18], ranks[i % gr["replicas"]])
+        check_mesh_devices(f"{tag}: {names[i]}", texts[i], ranks[i % gr["replicas"]])
         if finals[i][2:4] != ("0", "0"):
-            raise SmokeError(f"11: {names[i]}'s closing sync moved bytes")
-        if not float(finals[i][1]) < float(finals[i][0]):
-            raise SmokeError(f"11: {names[i]}: loss did not fall {finals[i][:2]}")
+            raise SmokeError(f"{tag}: {names[i]}'s closing sync moved bytes")
+        if gr.get("descent", True) and not float(finals[i][1]) < float(finals[i][0]):
+            raise SmokeError(f"{tag}: {names[i]}: loss did not fall {finals[i][:2]}")
     for g in range(gr["shards"]):
         group = rows[g * gr["replicas"]:(g + 1) * gr["replicas"]]
         for step in range(gr["outer_steps"]):
             if len({r[step][13] for r in group}) != 1:
-                raise SmokeError(f"11: group {g}'s digests differ at outer "
+                raise SmokeError(f"{tag}: group {g}'s digests differ at outer "
                                  f"step {step}")
     for i, (r, f) in enumerate(zip(rows, finals)):
         log(f"  grid cell {names[i].removesuffix('.log')} (shard {r[0][5]} "
             f"[{r[0][6]}:{r[0][7]}]): loss {' '.join(x[1] for x in r)}; tok_s "
             f"{' '.join(x[8] for x in r)}; outer_s {' '.join(x[9] for x in r)}; "
-            f"peak allocated MiB {f[4]}, peak host RSS MiB {f[5]}")
-    log(f"grid path: {full} cells, global {world} at every outer step; each "
-        f"group's digests equal at every step; syncs after the first 0 bytes; "
-        f"losses fell; grid file in {where}; launches {totals}")
+            + (f"gather_s {' '.join(x[16] for x in r)}; scatter_s "
+               f"{' '.join(x[17] for x in r)}; rank launches "
+               f"{' '.join(x[18] for x in r)}; " if r[0][18] else "")
+            + f"peak allocated MiB {f[4]}, peak host RSS MiB {f[5]}")
+    log(f"grid path ({tag}): {full} cells of {ranks} ranks, global {world} at "
+        f"every outer step; each group's digests equal at every step; syncs "
+        f"after the first 0 bytes{'; losses fell' if gr.get('descent', True) else ''}; "
+        f"grid file in {where}; launches {totals}")
     return {"launches": totals, "rows": rows, "finals": finals}
 
 
@@ -2662,6 +2705,160 @@ def phase_ddp_tp() -> dict:
     return {"launches": totals}
 
 
+# ------------------------------------------------------------------ phase 18
+
+# 18a: Llama-700m sync DiLoCo, a peer of 2 ranks beside one of 1; 18b:
+# GPT-2 async DiLoCo, two peers of 2 ranks; 18c: the grid with one cell of
+# each group at 2 ranks. Too few steps to show learning from random init:
+# the checks are the ring's invariants, and in 18a the losses of two
+# peers that read the same batches (same_data: both on data shard 0)
+MESH_SYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=2,
+                 outer_steps=2, ranks=(2, 1), same_data=True)
+MESH_ASYNC = dict(family="gpt", model="gpt2", block=1024, batch=8, inner_steps=4,
+                  outer_steps=3, ranks=(2, 2))
+MESH_GRID = dict(GRID, outer_steps=4, ranks=[2, 1], descent=False)
+# The digests cannot tell a sound 2-rank peer from one whose scatter writes
+# the wrong blocks or whose tp step computes another function: every peer
+# adds one averaged pseudo-gradient to one outer vector. On the same
+# batches and from the same outer parameters (after the first outer
+# step's scatter), the 2-rank peer's loss must follow the 1-rank peer's,
+# to within what the tp split's bf16 sums move it over the inner steps.
+# Readings on an H100 80GB HBM3 at 700 W (PERF.md §6), deterministic across runs:
+# sound 0.0081; a peer whose rank 1 keeps its stale blocks after the
+# scatter 0.1247, one whose tp ranks trade blocks 0.0453. The first outer
+# step's gap (0.098, sound) is logged, not held: it starts from the
+# seed, and AdamW's first update, ±lr on every element whatever the
+# gradient's size, turns the bf16 noise in the signs of small gradients
+# into whole steps
+MESH_LOSS_GAP = 0.02
+MESH_SUFFIX = r"(?: gather_s (\S+) scatter_s (\S+) rank_launches (\S+))?$"
+MESH_LINE = {
+    "sync": re.compile(r"^outer (\d+) loss (\S+) world (\d+) revision (\d+) "
+                       r"tok_s (\S+) outer_s (\S+)() launches (\d+) (\d+) (\d+) "
+                       r"digest (\w+)" + MESH_SUFFIX, re.M),
+    "async": re.compile(r"^outer (\d+) loss (\S+) world (\d+) revision (\d+) "
+                        r"tok_s (\S+) outer_s (\S+) join_s (\S+) launches (\d+) "
+                        r"(\d+) (\d+) digest (\w+)" + MESH_SUFFIX, re.M),
+}
+MESH_KEYS = ("step", "loss", "world", "revision", "tok_s", "outer_s", "join_s",
+             *FLASH, "digest", "gather_s", "scatter_s", "ranks")
+
+
+def check_rank_launches(what: str, field: str, n: int) -> None:
+    """Every one of a peer's n ranks launched K1-K3 (its `rank_launches`
+    field, a,b,c/a,b,c/...; none for one rank), and all on the card."""
+    if n == 1:
+        if field:
+            raise SmokeError(f"{what}: a one-rank peer printed rank launches")
+        return
+    counts = [[int(x) for x in r.split(",")] for r in (field or "").split("/")
+              if r]
+    if len(counts) != n or any(min(c) <= 0 for c in counts):
+        raise SmokeError(f"{what}: K1-K3 launches by rank {counts} (want {n} "
+                         f"ranks, each launching every kernel)")
+
+
+def check_mesh_devices(what: str, text: str, n: int) -> None:
+    """A peer of n > 1 ranks logged each rank's device: all on a card."""
+    if n == 1:
+        return
+    m = re.search(r"^mesh dp (\d+) tp (\d+) devices (.+)$", text, re.M)
+    if m is None or int(m.group(1)) * int(m.group(2)) != n:
+        raise SmokeError(f"{what}: no mesh line for {n} ranks")
+    devices = m.group(3).split()
+    if len(devices) != n or any(not d.startswith("cuda") for d in devices):
+        raise SmokeError(f"{what}: a rank is not on the card: {devices}")
+
+
+def phase_mesh_diloco(kind: str, spec: dict, tag: str) -> dict:
+    """Two DiLoCo peers (sync_diloco or async_diloco) of spec["ranks"]
+    ranks each, and a master; returns the launch totals. Digests must be
+    equal at every outer step (and after an async finish), every rank of
+    each peer must launch K1-K3 at every step, on the card."""
+    module = f"pccl_tpu_torch.examples.{kind}_diloco"
+    names = [f"mesh{tag}{i}.log" for i in range(2)]
+    peers = run_peer_pair(
+        names, module,
+        ["--family", spec["family"], "--model", spec["model"],
+         "--block", str(spec["block"]), "--batch", str(spec["batch"]),
+         "--inner-steps", str(spec["inner_steps"]),
+         "--outer-steps", str(spec["outer_steps"]), "--device", "cuda",
+         "--attn", "flash", "--no-descent-check"],
+        # a second --data-shard overrides run_peer_pair's own
+        per_rank=lambda rank: ["--ranks", str(spec["ranks"][rank])] + (
+            ["--data-shard", "0"] if spec.get("same_data") else []))
+    rows = []
+    for i, (code, text) in enumerate(peers):
+        n = spec["ranks"][i]
+        if code != 0 or "FINAL" not in text:
+            raise SmokeError(f"{tag}: peer {i} ({n} ranks) exited {code}")
+        check_mesh_devices(f"{tag}: peer {i}", text, n)
+        r = [dict(zip(MESH_KEYS, m.groups()))
+             for m in MESH_LINE[kind].finditer(text)]
+        if len(r) != spec["outer_steps"]:
+            raise SmokeError(f"{tag}: peer {i} logged {len(r)} outer steps")
+        rows.append(r)
+    totals = {name: 0 for name in FLASH}
+    for i, r in enumerate(rows):
+        n = spec["ranks"][i]
+        for step, row in enumerate(r):
+            what = f"{tag}: peer {i} outer step {step}"
+            if row["world"] != "2" or not math.isfinite(float(row["loss"])):
+                raise SmokeError(f"{what}: world {row['world']}, loss {row['loss']}")
+            if (row["gather_s"] is None) != (n == 1):
+                raise SmokeError(f"{what}: gather_s/scatter_s for {n} ranks")
+            check_rank_launches(what, row["ranks"], n)
+            for name in FLASH:
+                if int(row[name]) <= 0:
+                    raise SmokeError(f"{what}: {name} never launched")
+                totals[name] += int(row[name])
+    for step in range(spec["outer_steps"]):
+        digests = {r[step]["digest"] for r in rows}
+        if len(digests) != 1:
+            raise SmokeError(f"{tag}: outer step {step}: digests differ across "
+                             f"peers of {spec['ranks']} ranks: {sorted(digests)}")
+    gaps = []
+    if spec.get("same_data"):
+        gaps = [abs(float(a["loss"]) - float(b["loss"])) for a, b in zip(*rows)]
+        log(f"  {tag}: |loss gap| of the peers of {spec['ranks']} ranks on the "
+            f"same batches: {' '.join(f'{g:.4f}' for g in gaps)} (limit "
+            f"{MESH_LOSS_GAP})")
+        if max(gaps[1:]) > MESH_LOSS_GAP:
+            raise SmokeError(f"{tag}: the peers' losses on the same batches "
+                             f"differ by {gaps}, above {MESH_LOSS_GAP} after "
+                             f"the first outer step")
+    if kind == "async":
+        finals = {re.search(r"FINAL .*revision=(\d+) digest=(\w+)", t).groups()
+                  for _, t in peers}
+        if len(finals) != 1:
+            raise SmokeError(f"{tag}: FINAL revisions and digests differ: {finals}")
+    for i, r in enumerate(rows):
+        peak = re.search(r"(?:peak_alloc_mib=(\d+) )?peak_rss_mib=(\d+)", peers[i][1])
+        log(f"  {tag} peer {i} ({spec['ranks'][i]} ranks): loss "
+            f"{' '.join(x['loss'] for x in r)}; tok_s {' '.join(x['tok_s'] for x in r)}; "
+            f"outer_s {' '.join(x['outer_s'] for x in r)}; "
+            + (f"join_s {' '.join(x['join_s'] for x in r)}; " if kind == "async" else "")
+            + (f"gather_s {' '.join(x['gather_s'] for x in r)}; scatter_s "
+               f"{' '.join(x['scatter_s'] for x in r)}; launches by rank "
+               f"{' '.join(x['ranks'] for x in r)}; " if r[0]["gather_s"] else
+               f"launches {' '.join(x['flash_fwd'] for x in r)} (K1); ")
+            + f"peak allocated MiB {peak.group(1)} (rank 0), host RSS MiB "
+              f"{peak.group(2)}")
+    log(f"{tag}: {kind} DiLoCo, peers of {spec['ranks']} ranks at "
+        f"{spec['model']}, world 2, digests equal at every outer step; K1-K3 on "
+        f"every rank; launches {totals}")
+    return {"launches": totals, "rows": rows, "gaps": gaps}
+
+
+def phase_mesh() -> dict:
+    """Phase 18: 18a, 18b and 18c; returns their launch totals summed."""
+    parts = [timed("18a", lambda: phase_mesh_diloco("sync", MESH_SYNC, "18a")),
+             timed("18b", lambda: phase_mesh_diloco("async", MESH_ASYNC, "18b")),
+             timed("18c", lambda: phase_grid("cuda", MESH_GRID, "18c"))]
+    return {"launches": {name: sum(p["launches"][name] for p in parts)
+                         for name in FLASH}}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2680,12 +2877,6 @@ def main() -> int:
 
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.ops import hashing
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-        return out
 
     timed("build", phase_build)
     kres = timed("kernels", phase_kernels)
@@ -2725,8 +2916,11 @@ def main() -> int:
     pp = check_pp(par)
     check_moe(par)
     ddp_tp = timed("ddp tp", phase_ddp_tp)
+    # phase 18's peers and their ranks are processes of their own, whose
+    # counts start at 0
+    mesh = timed("diloco mesh", phase_mesh)
     paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp,
-             tp, pp, ddp_tp)
+             tp, pp, ddp_tp, mesh)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -2754,6 +2948,8 @@ def main() -> int:
             row["tp_gpt"] = at(kres["tp_gpt"])
             # and at phase 15's pipeline stages'
             row["pp"] = at(kres["pp"])
+            # and at phase 18a's Llama-700m peer of 2 tp ranks
+            row["tp2_llama"] = at(kres["tp2_llama"])
             # through flash_attention_with_lse with an lse cotangent (3a)
             row["with_lse_max_abs_err"] = max(
                 e[o]["max_abs"] for e in lres.values() for o in out_names[name])

@@ -90,6 +90,10 @@ def device_and_attention(ap: argparse.ArgumentParser, args):
     dev = resolve_device(args.device)
     if args.attn == "dense" and dev.type != "cpu":
         ap.error("--attn dense runs only with --device cpu")
+    if dev.type == "cuda" and dev.index is not None:
+        import torch
+
+        torch.cuda.set_device(dev)
     return dev, fa.flash_attention if args.attn == "flash" else None
 
 

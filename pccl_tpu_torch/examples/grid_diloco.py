@@ -14,8 +14,14 @@ The port of examples/grid_fsdp/grid_diloco.py. Each process is one cell
 
 - In a cell: H inner AdamW steps of the whole model on the cell's card
   (parallel/train.build_train_step, with the flash kernels on a card). The
-  JAX cell shards its model over a local tensor-parallel mesh; on one
-  device that mesh is (1, 1), the computation this cell does.
+  JAX cell shards its model over a local tensor-parallel mesh of every
+  local device; --ranks N gives the cell that mesh, factor_mesh(N) over
+  (dp, tp), as N processes (examples/ranks.py): rank 0 holds the comm,
+  the grid file and the cell's whole outer shard, gathers the ranks'
+  inner parameters for the outer step and scatters the assembled outer
+  parameters before each inner phase. Its outer lines then add
+  `gather_s G scatter_s S rank_launches a,b,c/a,b,c/...`, and `launches`
+  sums the ranks'.
 - Across replicas: the flat fp32 outer state (parallel/codec.py, the JAX
   leaf order) is split into --num-shards contiguous shards. A cell's shared
   state and its ring traffic are only its own shard.
@@ -226,11 +232,12 @@ def ring_average_shard(comm, shard: np.ndarray) -> None:
             time.sleep(0.1)
 
 
-def main(argv=None) -> int:
+def main(argv=None, rank: int = 0, store=None) -> int:
     ap = argparse.ArgumentParser()
-    from pccl_tpu_torch.examples import common
+    from pccl_tpu_torch.examples import common, ranks
 
     common.add_comm_args(ap)
+    ranks.add_ranks_arg(ap)
     ap.add_argument("--num-shards", type=int, default=2,
                     help="outer-state shards = peer groups = grid rows; "
                          "--peer-group selects this cell's shard")
@@ -262,50 +269,101 @@ def main(argv=None) -> int:
 
     import torch
 
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
+
+    args.device = ranks.rank_device(args.device, rank)
+    dev, attn_fn = common.device_and_attention(ap, args)
+    cfg = common.model_config(args, char_level=args.data == "text")
+    ranks.check_mesh(ap, cfg, args.ranks, args.batch)
+    with ranks.peer_mesh(main, argv, args.ranks, rank, store) as mesh:
+        first_loss, last_loss, comm, info, grid = _run(args, dev, attn_fn, cfg, mesh)
+    if rank:
+        return 0
+    extra = "" if info is None else \
+        f" last_sync_tx={info.tx_bytes} last_sync_rx={info.rx_bytes}"
+    if dev.type == "cuda":
+        extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
+    extra += f" peak_rss_mib={peak_rss_mib()}"
+    code = common.report_final(first_loss, last_loss, comm,
+                               require_descent=not args.no_descent_check,
+                               extra=extra)
+    grid.remove()  # the file is scoped to this run
+    return code
+
+
+def _run(args, dev, attn_fn, cfg, mesh):
+    """The loop of one rank; (first loss, last loss, comm, the last sync's
+    info, the grid file) on rank 0."""
+    import torch
+
     from pccl_tpu_torch.comm import SharedState, TensorInfo
+    from pccl_tpu_torch.examples import common, ranks
+    from pccl_tpu_torch.models.convert import MeshShards
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.codec import build_codec
-    from pccl_tpu_torch.utils.rss import peak_rss_mib
+    from pccl_tpu_torch.parallel.mesh import share
 
+    g = args.peer_group
+    shards = None if mesh is None else MeshShards(cfg, mesh)
+    group = None if shards is None else shards.group
+    lead = shards is None or shards.lead
     # the model is built before connect(): once admitted, this cell owes
     # topology votes to its group
-    dev, attn_fn = common.device_and_attention(ap, args)
-    cfg = common.model_config(args, char_level=args.data == "text")
-    state = train_lib.make_train_state(args.seed, cfg, dev, lr=args.inner_lr)
-    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn)
-    codec = build_codec(state.params)
-    # the flat vector on the card and its host copy (pinned on a card),
-    # each allocated once
-    vec = torch.empty(codec.count, dtype=torch.float32, device=dev)
-    host = torch.empty(codec.count, dtype=torch.float32,
-                       pin_memory=dev.type == "cuda")
+    state = train_lib.make_train_state(args.seed, cfg, dev, lr=args.inner_lr,
+                                       mesh=mesh)
+    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def flat_params() -> np.ndarray:
-        codec.flat_into(state.params, vec)
+    def gathered():
+        """The full inner parameters on rank 0 (None on the others)."""
+        return state.params if shards is None else shards.gather(state.params)
+
+    full = gathered()
+    ranks.print_mesh(mesh, dev)
+    codec = vec = host = None
+    if lead:
+        codec = build_codec(full)
+        # the flat vector on the card and its host copy (pinned on a
+        # card), each allocated once
+        vec = torch.empty(codec.count, dtype=torch.float32, device=dev)
+        host = torch.empty(codec.count, dtype=torch.float32,
+                           pin_memory=dev.type == "cuda")
+
+    def flat(full) -> np.ndarray:
+        codec.flat_into(full, vec)
         host.copy_(vec)                  # D2H; waits for the device
         return host.numpy()
 
-    # min-world gates the cell's own group; the grid gate below handles
-    # the column's completeness
-    args.min_world = max(args.min_world, args.min_replicas)
-    comm = common.connect(args)
+    def scatter_outer() -> None:
+        """The outer parameters in `vec` (on rank 0) into every rank's
+        parameters."""
+        if shards is None:
+            codec.unflat_into(vec, state.params)
+        else:
+            shards.scatter(codec.unflat(vec) if lead else None, state.params)
 
-    path = args.grid_file or f"/dev/shm/pcclt_grid_{args.master_port}.bin"
-    grid = GridFile(path, args.num_shards, codec.count)
-    lo, hi = grid.bounds[g], grid.bounds[g + 1]
-
-    # this cell's slice of the outer state: its shard of the flat
-    # parameters (equal across cells of one seed and framework; a group's
-    # first sync settles it otherwise) and the shard's momentum
-    outer_full = np.array(flat_params())
-    own_shard = np.array(outer_full[lo:hi])
-    momentum = np.zeros(hi - lo, dtype=np.float32)
-    step_arr = np.zeros(1, dtype=np.uint64)
+    comm = grid = None
+    if lead:
+        # min-world gates the cell's own group; the grid gate below
+        # handles the column's completeness
+        args.min_world = max(args.min_world, args.min_replicas)
+        comm = common.connect(args)
+        path = args.grid_file or f"/dev/shm/pcclt_grid_{args.master_port}.bin"
+        grid = GridFile(path, args.num_shards, codec.count)
+        lo, hi = grid.bounds[g], grid.bounds[g + 1]
+        # this cell's slice of the outer state: its shard of the flat
+        # parameters (equal across cells of one seed and framework; a
+        # group's first sync settles it otherwise) and the shard's
+        # momentum
+        outer_full = np.array(flat(full))
+        own_shard = np.array(outer_full[lo:hi])
+        momentum = np.zeros(hi - lo, dtype=np.float32)
+        step_arr = np.zeros(1, dtype=np.uint64)
+    del full
     lr, mu = args.outer_lr, args.outer_momentum
 
     prof = common.make_profiler(args)
@@ -314,31 +372,37 @@ def main(argv=None) -> int:
     step = 0
     ever_full = False
     info = None
-    while step < args.outer_steps:
-        wait_grid_full(comm, args.num_shards, ever_full, grid=grid, step=step)
-        ever_full = True
-
-        # the shard's shared state: joiners adopt the group's shard,
-        # momentum and revision
-        step_arr[0] = step
-        st = SharedState([
-            TensorInfo.from_numpy("grid.outer_shard", own_shard),
-            TensorInfo.from_numpy("grid.outer_momentum", momentum),
-            TensorInfo.from_numpy("grid.step", step_arr),
-        ], revision=step)
-        with prof.section("sync_state"):
-            info = sync_with_retry(comm, st)
-        step = int(step_arr[0])
-        if step >= args.outer_steps:
-            grid.publish(g, step, own_shard)  # column-mates may still wait
+    while True:
+        stop = 0
+        if lead:
+            wait_grid_full(comm, args.num_shards, ever_full, grid=grid, step=step)
+            ever_full = True
+            # the shard's shared state: joiners adopt the group's shard,
+            # momentum and revision
+            step_arr[0] = step
+            st = SharedState([
+                TensorInfo.from_numpy("grid.outer_shard", own_shard),
+                TensorInfo.from_numpy("grid.outer_momentum", momentum),
+                TensorInfo.from_numpy("grid.step", step_arr),
+            ], revision=step)
+            with prof.section("sync_state"):
+                info = sync_with_retry(comm, st)
+            step = int(step_arr[0])
+            if step >= args.outer_steps:
+                grid.publish(g, step, own_shard)  # column-mates may still wait
+                stop = 1
+        # rank 0 decides the step and the end of the run
+        stop, step = share(group, stop, step)
+        if stop:
             break
 
         # column exchange: publish shard g, assemble the full outer vector
-        grid.publish(g, step, own_shard)
-        grid.wait_all(step)
-        outer_full = grid.read_full()
-        vec.copy_(torch.from_numpy(outer_full))
-        codec.unflat_into(vec, state.params)
+        if lead:
+            grid.publish(g, step, own_shard)
+            grid.wait_all(step)
+            outer_full = grid.read_full()
+            vec.copy_(torch.from_numpy(outer_full))
+        scatter_outer()
 
         batches = [next_batch() for _ in range(args.inner_steps)]
         fa.reset_launch_counts()
@@ -351,45 +415,44 @@ def main(argv=None) -> int:
                 loss = step_fn(state, tok, tgt)
             loss = float(loss)               # waits for the last inner step
         t_inner = time.perf_counter() - t0
-        counts = dict(fa.launches)
+        counts = ranks.launch_counts(group, [fa.launches[k] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")])
 
         # outer step, shard g only: ring-average the pseudo-gradient across
         # the group, then Nesterov SGD on the shard, in the JAX cell's
         # float32 order
         t0 = time.perf_counter()
         with prof.section("outer/ring+sgd"):
-            inner_flat = flat_params()
-            delta = outer_full[lo:hi] - inner_flat[lo:hi]
-            ring_average_shard(comm, delta)
-            momentum = mu * momentum + delta
-            own_shard = outer_full[lo:hi] - lr * (delta + mu * momentum)
+            full = gathered()
+            if lead:
+                inner_flat = flat(full)
+                delta = outer_full[lo:hi] - inner_flat[lo:hi]
+                ring_average_shard(comm, delta)
+                momentum = mu * momentum + delta
+                own_shard = outer_full[lo:hi] - lr * (delta + mu * momentum)
+            del full
         t_outer = time.perf_counter() - t0
         step += 1
-        grid.publish(g, step, own_shard)
-
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
+        if not lead:
+            continue
+        grid.publish(g, step, own_shard)
         tok_s = args.inner_steps * args.batch * args.block / t_inner
         digest = hashlib.blake2b(own_shard.data, digest_size=16).hexdigest()
+        total = [sum(c) for c in zip(*counts)]
         print(f"outer {step} loss {loss:.4f} "
               f"grid {args.num_shards}x{comm.largest_peer_group} "
               f"global {comm.global_world_size} shard {g} [{lo}:{hi}] "
               f"tok_s {tok_s:.1f} outer_s {t_outer:.3f} launches "
-              f"{counts['flash_fwd']} {counts['flash_bwd_dq']} "
-              f"{counts['flash_bwd_dkv']} digest {digest} "
-              f"tx {info.tx_bytes} rx {info.rx_bytes}", flush=True)
+              f"{total[0]} {total[1]} {total[2]} digest {digest} "
+              f"tx {info.tx_bytes} rx {info.rx_bytes}"
+              f"{ranks.mesh_fields(counts, shards)}",
+              flush=True)
 
-    common.finish_profile(args, prof)
-    extra = "" if info is None else \
-        f" last_sync_tx={info.tx_bytes} last_sync_rx={info.rx_bytes}"
-    if dev.type == "cuda":
-        extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
-    extra += f" peak_rss_mib={peak_rss_mib()}"
-    code = common.report_final(first_loss, last_loss, comm,
-                               require_descent=not args.no_descent_check,
-                               extra=extra)
-    grid.remove()  # the file is scoped to this run
-    return code
+    if lead:
+        common.finish_profile(args, prof)
+    return first_loss, last_loss, comm, info, grid
 
 
 if __name__ == "__main__":

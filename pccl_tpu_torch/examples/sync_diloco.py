@@ -26,6 +26,21 @@ where D is the restored outer vector's digest, equal to the one outer step
 N - 1 printed. The FINAL line adds, on a card, the peak of the device
 memory torch allocated (peak_alloc_mib), and the process's peak resident
 host memory (peak_rss_mib).
+
+--ranks N (N > 1): the peer is N processes, one a card, on the mesh
+factor_mesh(N) over (dp, tp), where the JAX example meshes N devices
+(examples/ranks.py: this process is rank 0 and starts the others). The
+inner steps run train.build_train_step(mesh=) on each rank's blocks
+(tensor-parallel over "tp", the batch split over "dp"); rank 0 holds the
+comm and the whole outer state and runs the outer step on the gathered
+full parameters (parallel/diloco.py), so its digest is the one a
+one-rank or a JAX peer prints. Each outer line then adds
+    gather_s G scatter_s S rank_launches a,b,c/a,b,c/...
+(the outer step's gather to rank 0 and scatter back, and each rank's
+K1-K3 launches), and `launches` is their sum over the ranks. Rank 0
+prints, before the first step,
+    mesh dp D tp T devices d0 d1 ...
+Checkpoints are saved by rank 0 and scattered on resume.
 """
 
 from __future__ import annotations
@@ -35,11 +50,12 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
+def main(argv=None, rank: int = 0, store=None) -> int:
     ap = argparse.ArgumentParser()
-    from pccl_tpu_torch.examples import common
+    from pccl_tpu_torch.examples import common, ranks
 
     common.add_comm_args(ap)
+    ranks.add_ranks_arg(ap)
     ap.add_argument("--outer-steps", type=int, default=8)
     ap.add_argument("--inner-steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
@@ -61,24 +77,50 @@ def main(argv=None) -> int:
 
     import torch
 
+    from pccl_tpu_torch.utils.rss import peak_rss_mib
+
+    args.device = ranks.rank_device(args.device, rank)
+    dev, attn_fn = common.device_and_attention(ap, args)
+    cfg = common.model_config(args, char_level=args.data == "text")
+    ranks.check_mesh(ap, cfg, args.ranks, args.batch)
+    with ranks.peer_mesh(main, argv, args.ranks, rank, store) as mesh:
+        first_loss, last_loss, comm = _run(args, dev, attn_fn, cfg, mesh)
+    if rank:
+        return 0
+    extra = ""
+    if dev.type == "cuda":
+        extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
+    extra += f" peak_rss_mib={peak_rss_mib()}"
+    return common.report_final(first_loss, last_loss, comm,
+                               require_descent=not args.no_descent_check,
+                               extra=extra)
+
+
+def _run(args, dev, attn_fn, cfg, mesh):
+    """The loop of one rank; (first loss, last loss, comm) on rank 0."""
+    import torch
+
+    from pccl_tpu_torch.examples import common, ranks
+    from pccl_tpu_torch.models.convert import MeshShards
     from pccl_tpu_torch.ops import flash_attention as fa
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
-    from pccl_tpu_torch.utils.rss import peak_rss_mib
+    from pccl_tpu_torch.parallel.mesh import share
 
-    dev, attn_fn = common.device_and_attention(ap, args)
-
-    cfg = common.model_config(args, char_level=args.data == "text")
-    comm = common.connect(args)
+    shards = None if mesh is None else MeshShards(cfg, mesh)
+    group = None if shards is None else shards.group
+    lead = shards is None or shards.lead
+    comm = common.connect(args) if lead else None
     total_steps = args.outer_steps * args.inner_steps
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.inner_lr,
-        schedule=common.make_schedule(args, args.inner_lr, total_steps))
-    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn)
+        schedule=common.make_schedule(args, args.inner_lr, total_steps), mesh=mesh)
+    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh)
     dl = Diloco(comm, state.params,
                 DilocoConfig(inner_steps=args.inner_steps, outer_lr=args.outer_lr,
                              quantization=common.quant_from_arg(args.quantize),
-                             shm_staging=args.shm_staging))
+                             shm_staging=args.shm_staging), shards=shards)
+    ranks.print_mesh(mesh, dev)
 
     def sync():
         if dev.type == "cuda":
@@ -105,8 +147,9 @@ def main(argv=None) -> int:
                 args.seed, cfg, dev, lr=args.inner_lr, params=state.params,
                 schedule=common.make_schedule(args, args.inner_lr, total_steps,
                                               offset=start * args.inner_steps))
-            print(f"resumed from outer step {start} digest {dl.digest()} "
-                  f"restore_s {restore_s:.3f}", flush=True)
+            if lead:
+                print(f"resumed from outer step {start} digest {dl.digest()} "
+                      f"restore_s {restore_s:.3f}", flush=True)
 
     prof = common.make_profiler(args)
     next_batch = common.make_batch_fn(args, cfg.vocab_size)
@@ -115,8 +158,14 @@ def main(argv=None) -> int:
     for _ in range(start * args.inner_steps):
         next_batch()
     first_loss = last_loss = None
-    for outer in range(start, args.outer_steps):
-        common.admit_pending(comm)
+    outer = start
+    while True:
+        # rank 0 decides whether the run goes on; every rank follows it
+        go, = share(group, int(outer < args.outer_steps))
+        if not go:
+            break
+        if lead:
+            common.admit_pending(comm)
         batches = [next_batch() for _ in range(args.inner_steps)]
         fa.reset_launch_counts()
         sync()
@@ -128,7 +177,8 @@ def main(argv=None) -> int:
                 loss = step_fn(state, tok, tgt)
             loss = float(loss)             # waits for the last inner step
         t_inner = time.perf_counter() - t0
-        counts = dict(fa.launches)
+        counts = ranks.launch_counts(group, [fa.launches[k] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")])
         t0 = time.perf_counter()
         with prof.section("outer/ring+sgd"):
             dl.outer_step(state.params)
@@ -136,26 +186,25 @@ def main(argv=None) -> int:
         t_outer = time.perf_counter() - t0
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
-        world = comm.world_size if comm is not None else 1
-        tok_s = args.inner_steps * args.batch * args.block / t_inner
-        print(f"outer {outer} loss {loss:.4f} world {world} revision {dl.step} "
-              f"tok_s {tok_s:.1f} outer_s {t_outer:.3f} launches "
-              f"{counts['flash_fwd']} {counts['flash_bwd_dq']} "
-              f"{counts['flash_bwd_dkv']} digest {dl.digest()}", flush=True)
+        if lead:
+            world = comm.world_size if comm is not None else 1
+            tok_s = args.inner_steps * args.batch * args.block / t_inner
+            total = [sum(c) for c in zip(*counts)]
+            print(f"outer {outer} loss {loss:.4f} world {world} revision {dl.step} "
+                  f"tok_s {tok_s:.1f} outer_s {t_outer:.3f} launches "
+                  f"{total[0]} {total[1]} {total[2]} digest {dl.digest()}"
+                  f"{ranks.mesh_fields(counts, shards)}", flush=True)
         if ckpt is not None and (outer + 1) % args.checkpoint_every == 0:
             t0 = time.perf_counter()
             path = ckpt.save(dl)
-            print(f"checkpoint outer step {dl.step} bytes {path.stat().st_size} "
-                  f"save_s {time.perf_counter() - t0:.3f}", flush=True)
-
-    common.finish_profile(args, prof)
-    extra = ""
-    if dev.type == "cuda":
-        extra += f" peak_alloc_mib={torch.cuda.max_memory_allocated(dev) >> 20}"
-    extra += f" peak_rss_mib={peak_rss_mib()}"
-    return common.report_final(first_loss, last_loss, comm,
-                               require_descent=not args.no_descent_check,
-                               extra=extra)
+            if path is not None:
+                print(f"checkpoint outer step {dl.step} bytes "
+                      f"{path.stat().st_size} save_s {time.perf_counter() - t0:.3f}",
+                      flush=True)
+        outer += 1
+    if lead:
+        common.finish_profile(args, prof)
+    return first_loss, last_loss, comm
 
 
 if __name__ == "__main__":

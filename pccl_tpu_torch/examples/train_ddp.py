@@ -184,87 +184,9 @@ def params_blake2b(params) -> str:
     return hashlib.blake2b(flat.numpy().tobytes(), digest_size=16).hexdigest()
 
 
-def share(group, *values: int) -> list:
-    """Rank 0's values on every rank of a tp peer's group, as one int64
-    broadcast (rank 0 holds the comm and decides); the values themselves
-    for a one-rank peer (group None)."""
-    import torch
-    import torch.distributed as dist
-
-    if group is None:
-        return list(values)
-    t = torch.tensor(values, dtype=torch.int64)
-    dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
-    return t.tolist()
-
-
-def _tp_rank_main(argv, rank: int, store: str) -> None:
-    """Ranks 1..N-1 of a tp peer, started by rank 0: the same loop,
-    without a comm; ends when the parent does."""
-    import threading
-
-    parent = os.getppid()
-
-    def watch():
-        while os.getppid() == parent:
-            time.sleep(1.0)
-        os._exit(3)
-
-    threading.Thread(target=watch, daemon=True).start()
-    code = main(argv, tp_rank=rank, tp_store=store)
-    sys.stdout.flush()
-    os._exit(code)
-
-
-def _start_tp_ranks(argv, n: int):
-    """Ranks 1..n-1 of this peer as spawned processes, and the FileStore
-    path (in a temp dir) they and rank 0 join through."""
-    import multiprocessing as mp
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="train_ddp_tp_")
-    store = os.path.join(tmp, "store")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_tp_rank_main, args=(argv, r, store), daemon=True)
-             for r in range(1, n)]
-    for p in procs:
-        p.start()
-    return procs, store, tmp
-
-
-def _exit_if_a_rank_dies(procs) -> None:
-    """Rank 0 ends the peer if another rank dies, rather than wait in a
-    collective for it."""
-    import threading
-
-    def watch():
-        while True:
-            for p in procs:
-                if p.exitcode not in (None, 0):
-                    print(f"tp rank process {p.name} exited {p.exitcode}",
-                          file=sys.stderr, flush=True)
-                    os._exit(1)
-            time.sleep(0.5)
-
-    threading.Thread(target=watch, daemon=True).start()
-
-
-def _init_tp(n: int, rank: int, store: str):
-    """The gloo world of a tp peer, and its (tp,) mesh."""
-    import datetime
-
-    import torch.distributed as dist
-
-    from pccl_tpu_torch.parallel import mesh as mesh_lib
-
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=n, timeout=datetime.timedelta(hours=1))
-    return mesh_lib.make_mesh(("tp",), (n,), backend="gloo")
-
-
-def main(argv=None, tp_rank: int = 0, tp_store: "str | None" = None) -> int:
+def main(argv=None, rank: int = 0, store: "str | None" = None) -> int:
     ap = argparse.ArgumentParser()
-    from pccl_tpu_torch.examples import common
+    from pccl_tpu_torch.examples import common, ranks
 
     common.add_comm_args(ap)
     ap.add_argument("--steps", type=int, default=50)
@@ -307,7 +229,6 @@ def main(argv=None, tp_rank: int = 0, tp_store: "str | None" = None) -> int:
         ap.error(str(e))
 
     cfg = common.model_config(args, char_level=args.data == "text")
-    procs, tmp, mesh = [], None, None
     if n_tp > 1:
         from pccl_tpu_torch.models.convert import tp_layout
 
@@ -315,26 +236,9 @@ def main(argv=None, tp_rank: int = 0, tp_store: "str | None" = None) -> int:
             tp_layout(cfg, n_tp)
         except ValueError as e:
             ap.error(str(e))
-        if tp_rank == 0:
-            procs, tp_store, tmp = _start_tp_ranks(
-                sys.argv[1:] if argv is None else list(argv), n_tp)
-            _exit_if_a_rank_dies(procs)
-        mesh = _init_tp(n_tp, tp_rank, tp_store)
-    try:
+    with ranks.peer_mesh(main, argv, n_tp, rank, store, axes=("tp",),
+                         shape=(n_tp,)) as mesh:
         return _run(args, dev, attn_fn, make, cfg, mesh)
-    finally:
-        if mesh is not None:
-            import shutil
-
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
-            for p in procs:
-                p.join(timeout=60)
-                if p.is_alive():
-                    p.kill()
-            if tmp is not None:
-                shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
@@ -348,6 +252,7 @@ def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
     from pccl_tpu_torch.ops import hashing
     from pccl_tpu_torch.parallel import train as train_lib
     from pccl_tpu_torch.parallel.hierarchical import HierarchicalAllReduce
+    from pccl_tpu_torch.parallel.mesh import share
     from pccl_tpu_torch.utils.data import prefetch_to_device
     from pccl_tpu_torch.utils.rss import peak_rss_mib
 

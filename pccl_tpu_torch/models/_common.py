@@ -1,7 +1,9 @@
 """Pieces shared by the model families: the layer loop with checkpointing,
 the fp32-output head product and the cross-entropy losses, and their
 tensor-parallel forms: the vocab-parallel embedding lookup and
-cross-entropy, and the row-parallel out-projection."""
+cross-entropy (whole or in sequence chunks), the row-parallel
+out-projection, and the kv heads that several ranks share where tp does
+not divide n_kv_head."""
 
 from __future__ import annotations
 
@@ -170,13 +172,17 @@ class _ColumnIn(torch.autograd.Function):
     rank's partial input gradient in fp32, so that autograd adds the
     products' shares and copy_to sums the ranks' in fp32, and the cast
     back to the compute dtype rounds once, as the unsharded product's
-    gradient does. The weight gradient is the compute-dtype product's."""
+    gradient does. The weight gradient is the compute-dtype product's;
+    with `w_sum` (columns that other ranks hold too) it is the fp32
+    product passed through w_sum, which sums it over those ranks, and
+    then cast once."""
 
     @staticmethod
-    def forward(ctx, x32, w, dtype, f32_out: bool):
+    def forward(ctx, x32, w, dtype, f32_out: bool, w_sum):
         xb, wb = x32.to(dtype), w.to(dtype)
         ctx.save_for_backward(xb, wb)
         ctx.w_dtype = w.dtype
+        ctx.w_sum = w_sum
         x2 = xb.reshape(-1, xb.shape[-1])
         out = _mm_f32(x2, wb) if f32_out else x2 @ wb
         return out.reshape(*xb.shape[:-1], wb.shape[-1])
@@ -186,8 +192,12 @@ class _ColumnIn(torch.autograd.Function):
         xb, wb = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1]).to(xb.dtype)
         dx = _mm_f32(g2, wb.t()).reshape(xb.shape)
-        dw = (xb.reshape(-1, xb.shape[-1]).t() @ g2).to(ctx.w_dtype)
-        return dx, dw, None, None
+        x2t = xb.reshape(-1, xb.shape[-1]).t()
+        if ctx.w_sum is None:
+            dw = (x2t @ g2).to(ctx.w_dtype)
+        else:
+            dw = ctx.w_sum(_mm_f32(x2t, g2)).to(xb.dtype).to(ctx.w_dtype)
+        return dx, dw, None, None, None
 
 
 def column_input(h: torch.Tensor, tp=None) -> torch.Tensor:
@@ -196,13 +206,62 @@ def column_input(h: torch.Tensor, tp=None) -> torch.Tensor:
     return h if tp is None else copy_to(h.float(), tp)
 
 
-def column(x: torch.Tensor, w: torch.Tensor, dtype, tp, f32_out: bool = False):
+def column(x: torch.Tensor, w: torch.Tensor, dtype, tp, f32_out: bool = False,
+           w_sum=None):
     """x @ w in `dtype` (with an fp32 result if f32_out) for x from
     column_input(h, tp): the plain product without a tp group, _ColumnIn
-    with one."""
+    with one (w_sum: see there)."""
     if tp is None:
         return matmul_f32(x, w) if f32_out else x @ w.to(dtype)
-    return _ColumnIn.apply(x, w, dtype, f32_out)
+    return _ColumnIn.apply(x, w, dtype, f32_out, w_sum)
+
+
+def kv_ranges(n_head: int, n_kv_head: int, tp: int) -> list:
+    """[lo, hi) of the kv heads each of tp ranks holds: those its own q
+    heads [r·H/tp, (r+1)·H/tp) read, q head h reading kv head h // G. Where
+    tp divides n_kv_head these are disjoint blocks; where n_kv_head
+    divides tp, each rank holds one kv head and tp / n_kv_head ranks share
+    it. Otherwise a rank's q heads would read its kv heads in unequal
+    groups, which the GQA kernels cannot run: ValueError."""
+    if n_head % tp:
+        raise ValueError(f"tp={tp} does not divide n_head={n_head}")
+    if n_kv_head % tp and tp % n_kv_head:
+        raise ValueError(
+            f"tp={tp} and n_kv_head={n_kv_head}: neither divides the other, "
+            "so a rank's q heads would read its kv heads in unequal groups")
+    hq, g = n_head // tp, n_head // n_kv_head
+    return [(r * hq // g, ((r + 1) * hq - 1) // g + 1) for r in range(tp)]
+
+
+def shared_kv_sum(dw: torch.Tensor, tp, lo: int, hi: int, n_kv_head: int,
+                  head_dim: int) -> torch.Tensor:
+    """The weight gradient of a rank's kv columns (k heads [lo, hi) | v
+    heads [lo, hi), [d, 2·(hi-lo)·Dh]) summed over the ranks that hold the
+    same heads: each rank's block is placed at its heads' columns of the
+    full [d, 2·n_kv_head·Dh] layout, zeros elsewhere, the group SUMs that,
+    and each rank takes its columns back. The sum runs in dw's dtype
+    (fp32 from _ColumnIn)."""
+    n = (hi - lo) * head_dim
+    k, v = dw.chunk(2, dim=-1)
+    off = n_kv_head * head_dim
+    full = dw.new_zeros(*dw.shape[:-1], 2 * off)
+    full[..., lo * head_dim:lo * head_dim + n] = k
+    full[..., off + lo * head_dim:off + lo * head_dim + n] = v
+    all_reduce_(full, tp)
+    return torch.cat([full[..., lo * head_dim:lo * head_dim + n],
+                      full[..., off + lo * head_dim:off + lo * head_dim + n]], -1)
+
+
+def kv_grad_sum(cfg, tp):
+    """column's w_sum for the kv projection of a Llama config on a tp
+    group: shared_kv_sum where the group's ranks share kv heads (tp
+    larger than n_kv_head), else None."""
+    n = group_size(tp)
+    if tp is None or cfg.n_kv_head % n == 0:
+        return None
+    lo, hi = kv_ranges(cfg.n_head, cfg.n_kv_head, n)[dist.get_rank(tp)]
+    return functools.partial(shared_kv_sum, tp=tp, lo=lo, hi=hi,
+                             n_kv_head=cfg.n_kv_head, head_dim=cfg.head_dim)
 
 
 def embed(tok_emb: torch.Tensor, tokens: torch.Tensor, dtype, tp=None):
@@ -271,9 +330,23 @@ def tp_head_loss(x: torch.Tensor, head_mat: torch.Tensor, targets, tp,
                  loss_chunk) -> torch.Tensor:
     """The loss of final hidden states x against a vocab-parallel head
     block [d, V/tp] (a column-parallel product: x's cotangent sums over
-    the blocks)."""
-    if loss_chunk:
-        raise NotImplementedError("loss_chunk with a tp group of more than "
-                                  "one rank is not supported")
-    return vocab_parallel_ce_loss(
-        column(column_input(x, tp), head_mat, x.dtype, tp, f32_out=True), targets, tp)
+    the blocks). With loss_chunk < T, chunked_ce_loss's scheme: each
+    sequence chunk's logits block [B, c, V/tp] and its vocab-parallel CE
+    under a checkpoint, so the backward recomputes them (with their
+    collectives, in the same order on every rank); the chunk losses are
+    summed and divided by B·T."""
+    x_in = column_input(x, tp)
+    B, T, _ = x.shape
+    if not loss_chunk or T <= loss_chunk:
+        return vocab_parallel_ce_loss(
+            column(x_in, head_mat, x.dtype, tp, f32_out=True), targets, tp)
+
+    def chunk_nll(xc, tc):
+        logits = column(xc, head_mat, x.dtype, tp, f32_out=True)
+        return vocab_parallel_ce_loss(logits, tc, tp) * tc.numel()
+
+    tot = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, T, loss_chunk):
+        tot = tot + checkpoint(chunk_nll, x_in[:, i:i + loss_chunk],
+                               targets[:, i:i + loss_chunk], use_reentrant=False)
+    return tot / (B * T)

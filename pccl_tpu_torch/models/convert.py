@@ -12,13 +12,22 @@ contiguous column blocks, so at tp=2 rank 0 would hold all of q and half
 of k; GSPMD computes the same function anyway. A rank of the port runs
 attention on its own heads, so its block of `attn_qkv` is q heads
 [h0, h1), k heads [h0, h1) and v heads [h0, h1), and of Llama's `attn_kv`
-[L, d, 2·Hkv·Dh] (k | v) its kv heads. q head h reads kv head h // G, so
-q heads [r·H/tp, ...) meet kv heads [r·Hkv/tp, ...) only when tp divides
-n_kv_head; otherwise the layout raises. `gather_params` gives back the
-full tensors in the JAX package's layout."""
+[L, d, 2·Hkv·Dh] (k | v) the kv heads its q heads read
+(models/_common.py:kv_ranges): q head h reads kv head h // G, so where tp
+divides n_kv_head rank r holds kv heads [r·Hkv/tp, ...), and where tp is
+a multiple of n_kv_head each rank holds one kv head, which tp / Hkv
+ranks share (their copies stay equal: each one's gradient is the sum
+over them). `gather_params` gives back the full tensors in the JAX
+package's layout, each shared kv head taken from the first rank that
+holds it.
+
+`MeshShards` does the same for a peer of several ranks on a (dp, tp)
+mesh: the full tensors on its rank (0, 0), every rank's blocks back from
+them."""
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,6 +36,7 @@ import torch
 from .._device import resolve_device
 from ..parallel import mesh as mesh_lib
 from ..parallel.train import family
+from ._common import kv_ranges
 
 
 def params_from_numpy(np_params: Dict[str, np.ndarray], cfg,
@@ -65,20 +75,18 @@ _SECTIONS = {"attn_qkv": 3, "attn_kv": 2}
 def tp_layout(cfg, tp: int) -> Dict[str, Optional[int]]:
     """Name -> the dim split over tp (None: replicated) for every parameter
     of the config's family; raises where tp does not split whole heads,
-    the FFN width or the vocab."""
+    the FFN width or the vocab (JAX's rules), or where neither of tp and
+    n_kv_head divides the other (_common.kv_ranges)."""
     from . import llama
 
     is_llama = isinstance(cfg, llama.LlamaConfig)
     need = {"n_head": cfg.n_head, "vocab_size": cfg.vocab_size,
             "ffn width": cfg.ffn_dim if is_llama else 4 * cfg.n_embd}
-    if is_llama:
-        need["n_kv_head"] = cfg.n_kv_head
     for what, n in need.items():
         if n % tp:
-            hint = (" (q head h reads kv head h // G, so each rank needs "
-                    "whole kv heads; JAX's GSPMD computes this case, the "
-                    "port does not)") if what == "n_kv_head" else ""
-            raise ValueError(f"tp={tp} does not divide {what}={n}{hint}")
+            raise ValueError(f"tp={tp} does not divide {what}={n}")
+    if is_llama:
+        kv_ranges(cfg.n_head, cfg.n_kv_head, tp)
     specs = mesh_lib.param_specs(is_llama, getattr(cfg, "untie_head", False))
     return {name: (spec.index("tp") if "tp" in spec else None)
             for name, spec in specs.items()}
@@ -107,10 +115,20 @@ class TpShards:
     of the axis must call gather and scatter, in the same order."""
 
     def __init__(self, cfg, mesh, axis: str = "tp"):
+        from . import llama
+
         self.group = mesh.group(axis)
         self.size = mesh.size(axis)
         self.rank = mesh.rank(axis)
         self.layout = tp_layout(cfg, self.size)
+        # Llama's kv heads: each rank's [lo, hi), in columns of one
+        # section (k or v) of attn_kv
+        self._kv = None
+        if isinstance(cfg, llama.LlamaConfig):
+            dh = cfg.head_dim
+            self._kv = [(lo * dh, hi * dh) for lo, hi in
+                        kv_ranges(cfg.n_head, cfg.n_kv_head, self.size)]
+            self._kv_width = cfg.n_kv_head * dh
 
     def _dim(self, name: str) -> Optional[int]:
         if name not in self.layout:
@@ -122,6 +140,10 @@ class TpShards:
         dim = self._dim(name)
         if dim is None:
             return [x] * self.size
+        if name == "attn_kv" and self._kv is not None:
+            k, v = x.chunk(2, dim)
+            return [torch.cat([k.narrow(dim, lo, hi - lo), v.narrow(dim, lo, hi - lo)],
+                              dim) for lo, hi in self._kv]
         return _split(x, dim, _SECTIONS.get(name, 1), self.size)
 
     def shard(self, full: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -134,14 +156,27 @@ class TpShards:
     def full_shape(self, name: str, shape) -> tuple:
         """The full tensor's shape from a block's."""
         dim, shape = self._dim(name), list(shape)
-        if dim is not None:
+        if name == "attn_kv" and self._kv is not None:
+            shape[dim] = 2 * self._kv_width
+        elif dim is not None:
             shape[dim] *= self.size
         return tuple(shape)
 
     def join(self, name: str, blocks) -> torch.Tensor:
         dim = self._dim(name)
-        return blocks[0] if dim is None else _join(blocks, dim,
-                                                   _SECTIONS.get(name, 1))
+        if dim is None:
+            return blocks[0]
+        if name == "attn_kv" and self._kv is not None:
+            # each column range from the first rank that holds it
+            sections = [[], []]
+            end = 0
+            for (lo, hi), b in zip(self._kv, blocks):
+                if hi > end:
+                    for sec, part in zip(sections, b.chunk(2, dim)):
+                        sec.append(part.narrow(dim, end - lo, hi - end))
+                    end = hi
+            return torch.cat([torch.cat(sec, dim) for sec in sections], dim)
+        return _join(blocks, dim, _SECTIONS.get(name, 1))
 
     def gather(self, local: Dict[str, torch.Tensor],
                dst: Optional[int] = None) -> Optional[Dict[str, torch.Tensor]]:
@@ -190,3 +225,62 @@ def gather_params(local: Dict[str, torch.Tensor], cfg, mesh,
     """The full parameters, in the JAX package's layout, on every rank of
     the axis, from each rank's blocks. Every rank must call it."""
     return TpShards(cfg, mesh, axis).gather(local)
+
+
+class MeshShards:
+    """A peer of several ranks on a (dp, tp) mesh (either axis may be
+    missing or of size 1), seen from outside as one set of full tensors,
+    the JAX package's global arrays: `gather` joins the blocks of dp row
+    0's tp group into full tensors on the mesh's rank (0, 0), the `lead`
+    (None on every other rank; dp rows > 0 hold the same blocks and take
+    no part); `scatter` writes every rank's blocks of full tensors given on
+    the lead: its tp group's blocks on dp row 0, then broadcast over "dp".
+    Every rank of the mesh must call both, in the same order. Each records
+    its seconds on this rank in `gather_s` / `scatter_s`, from a device
+    sync before it to its last copy landing."""
+
+    def __init__(self, cfg, mesh):
+        self.group = mesh.group(*mesh.axis_names)
+        self.tp = TpShards(cfg, mesh) if mesh.shape.get("tp", 1) > 1 else None
+        self.dp = mesh.group("dp") if mesh.shape.get("dp", 1) > 1 else None
+        self.dp_rank = mesh.rank("dp") if "dp" in mesh.shape else 0
+        self.lead = self.dp_rank == 0 and (self.tp is None or self.tp.rank == 0)
+        self.gather_s = self.scatter_s = 0.0
+
+    @staticmethod
+    def _sync(local: Dict[str, torch.Tensor]) -> None:
+        x = next(iter(local.values()))
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+    def gather(self, local: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+        """The full tensors on the lead, in `local`'s order (a one-rank tp
+        axis: the lead's own tensors, detached); None elsewhere."""
+        self._sync(local)
+        t0 = time.perf_counter()
+        full = None
+        if self.dp_rank == 0:
+            full = {name: x.detach() for name, x in local.items()} \
+                if self.tp is None else self.tp.gather(local, dst=0)
+        self.gather_s = time.perf_counter() - t0
+        return full
+
+    @torch.no_grad()
+    def scatter(self, full: Optional[Dict[str, torch.Tensor]],
+                local: Dict[str, torch.Tensor]) -> None:
+        """Write each rank's blocks of `full` (given on the lead) into its
+        tensors of `local`, in place."""
+        t0 = time.perf_counter()
+        if self.dp_rank == 0:
+            if self.tp is not None:
+                self.tp.scatter(full, local, src=0)
+            else:
+                for name, x in local.items():
+                    if x.data_ptr() != full[name].data_ptr():
+                        x.copy_(full[name])
+        if self.dp is not None:
+            src = torch.distributed.get_global_rank(self.dp, 0)
+            for x in local.values():
+                torch.distributed.broadcast(x, src, group=self.dp)
+        self._sync(local)
+        self.scatter_s = time.perf_counter() - t0

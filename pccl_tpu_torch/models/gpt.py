@@ -195,7 +195,7 @@ def loss_fn(params, tokens, targets, cfg: GPTConfig, attn_fn=None,
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
     divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank; loss_chunk then raises."""
+    vocab-parallel and the same on every rank, chunked or not."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")

@@ -14,9 +14,12 @@ models/gpt.py (the same functions); SiLU gating; the untied head with
 compute-dtype operands and an fp32 result.
 
 Tensor parallelism (`tp=`) as in models/gpt.py: a rank holds whole q heads
-[r·H/tp, ...) and the kv heads they read, [r·Hkv/tp, ...) (tp must divide
-n_kv_head), columns of mlp_gate and mlp_up, rows of attn_out and
-mlp_down, and vocab blocks of tok_emb and the head.
+[r·H/tp, ...) and the kv heads they read (models/_common.py:kv_ranges:
+[r·Hkv/tp, ...) where tp divides n_kv_head; one kv head, shared with the
+other ranks whose q heads read it, where n_kv_head divides tp), columns
+of mlp_gate and mlp_up, rows of attn_out and mlp_down, and vocab blocks
+of tok_emb and the head. A shared kv head's weight gradient is summed
+over the ranks that hold it, in fp32 (_common.shared_kv_sum).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (chunked_ce_loss, column, column_input, embed,
-                      gather_ce_loss, row_parallel, run_blocks,
+                      gather_ce_loss, kv_grad_sum, row_parallel, run_blocks,
                       tp_group, tp_head_loss)
 from .gpt import _rmsnorm, _rope
 
@@ -132,7 +135,8 @@ def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None, pos_offset=0,
     q = column(h_in, params["attn_q"][layer], h.dtype, tp)
     H = q.shape[-1] // Dh
     q = q.reshape(B, T, H, Dh)
-    k, v = column(h_in, params["attn_kv"][layer], h.dtype, tp).chunk(2, dim=-1)
+    k, v = column(h_in, params["attn_kv"][layer], h.dtype, tp,
+                  w_sum=kv_grad_sum(cfg, tp)).chunk(2, dim=-1)
     Hkv = k.shape[-1] // Dh
     q = _rope(q, cfg.rope_theta, pos_offset)
     k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta, pos_offset)
@@ -175,7 +179,7 @@ def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None,
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
     divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank; loss_chunk then raises."""
+    vocab-parallel and the same on every rank, chunked or not."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")

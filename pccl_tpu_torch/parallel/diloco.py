@@ -28,6 +28,19 @@ torch.cuda.synchronize (the JAX package's phase names).
 `shared_state()` / `sync_shared_state()` expose outer params, momentum and
 step as a revisioned SharedState staged through host numpy, so a late
 joiner catches up bit-identically.
+
+A peer may be several ranks on a (dp, tp) mesh (`shards=`, a
+models/convert.MeshShards), the JAX package's peer over its local mesh.
+Its lead, rank (0, 0), holds the communicator and the whole outer state,
+the full fp32 vector and momentum in the codec order of the full
+tensors, which is what the JAX Diloco flattens from its global arrays:
+so a peer of any number of ranks, a one-rank peer and a JAX peer put
+every element at the same index of the ring's vector. Each outer step
+the ranks' inner parameters are gathered to the lead, the lead runs the
+outer step above on the full tensors, and every rank gets its blocks of
+the new parameters back (the shards time both). Every rank calls every
+method; the other ranks hold no outer state and no step (digest() is
+None there).
 """
 
 from __future__ import annotations
@@ -97,18 +110,16 @@ class Diloco:
 
     def __init__(self, comm: Optional[Communicator],
                  params: Dict[str, torch.Tensor],
-                 cfg: DilocoConfig = DilocoConfig()):
+                 cfg: DilocoConfig = DilocoConfig(), shards=None):
         self.comm = comm
         self.cfg = cfg
         self.step = 0
-        self.codec = build_codec(params)
-        self.count = self.codec.count
-        # the canonical outer state: flat fp32 vectors on the parameters'
-        # device; delta is a reused scratch vector
-        self._outer_vec = self.codec.flat(params)
-        self.device = self._outer_vec.device
-        self._momentum_vec = torch.zeros_like(self._outer_vec)
-        self._delta = torch.empty_like(self._outer_vec)
+        self.shards = shards
+        self.device = next(iter(params.values())).device
+        full = params if shards is None else shards.gather(params)
+        self.lead = full is not None
+        if comm is not None and not self.lead:
+            raise ValueError("only the lead rank of a peer holds the comm")
         # host buffers, each allocated at its first use: the pinned D2H
         # target, the unstaged ring's pinned output, the two shm stages
         self._host: Optional[torch.Tensor] = None
@@ -117,6 +128,17 @@ class Diloco:
         self._shm_out: Optional[np.ndarray] = None
         self._side_stream = None
         self.last_profile: Optional[dict] = None
+        self.codec = self._outer_vec = self._momentum_vec = self._delta = None
+        self.count = 0
+        if not self.lead:
+            return
+        self.codec = build_codec(full)
+        self.count = self.codec.count
+        # the canonical outer state: flat fp32 vectors on the parameters'
+        # device; delta is a reused scratch vector
+        self._outer_vec = self.codec.flat(full)
+        self._momentum_vec = torch.zeros_like(self._outer_vec)
+        self._delta = torch.empty_like(self._outer_vec)
 
     # -- the outer step --
 
@@ -125,12 +147,17 @@ class Diloco:
         return self._outer_vec
 
     def params(self) -> Dict[str, torch.Tensor]:
-        """Fresh tensors holding the current outer parameters."""
+        """Fresh tensors holding the current outer parameters (the full
+        tensors, on the lead only)."""
         return self.codec.unflat(self._outer_vec)
 
     def copy_outer_into(self, params: Dict[str, torch.Tensor]) -> None:
-        """Write the current outer parameters into `params` in place."""
-        self.codec.unflat_into(self._outer_vec, params)
+        """Write the current outer parameters into `params` in place (each
+        rank's blocks of them, on every rank of a peer of several)."""
+        if self.shards is None:
+            self.codec.unflat_into(self._outer_vec, params)
+            return
+        self.shards.scatter(self.params() if self.lead else None, params)
 
     def _pinned(self) -> torch.Tensor:
         """A host fp32 vector of the outer vector's size, pinned when the
@@ -274,7 +301,17 @@ class Diloco:
     def outer_step(self, inner_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Average pseudo-gradients across peers, apply outer Nesterov SGD,
         and write the new outer parameters into `inner_params` (in place;
-        the same dict is returned)."""
+        the same dict is returned). On a peer of several ranks: gathered
+        to the lead, stepped there, scattered back."""
+        if self.shards is None:
+            return self._outer_step(inner_params)
+        full = self.shards.gather(inner_params)
+        if self.lead:
+            self._outer_step(full)
+        self.shards.scatter(full, inner_params)
+        return inner_params
+
+    def _outer_step(self, inner_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         prof, mark = self._marker()
         t = time.perf_counter()
         delta = self.codec.flat_delta_vec(self._outer_vec, inner_params,
@@ -319,9 +356,12 @@ class Diloco:
             self.last_profile = prof
         return inner_params
 
-    def digest(self) -> str:
+    def digest(self) -> Optional[str]:
         """BLAKE2b of the outer vector's bytes: equal on every peer after a
-        sync outer step (the peers apply one averaged delta to one state)."""
+        sync outer step (the peers apply one averaged delta to one state).
+        None on the ranks of a peer other than its lead."""
+        if not self.lead:
+            return None
         with torch.no_grad():
             host = self._outer_vec.cpu()
         return hashlib.blake2b(host.numpy().data, digest_size=16).hexdigest()
@@ -342,18 +382,26 @@ class Diloco:
 
     def sync_shared_state(
             self,
-            strategy: SharedStateSyncStrategy = SharedStateSyncStrategy.ENFORCE_POPULAR):
+            strategy: SharedStateSyncStrategy = SharedStateSyncStrategy.ENFORCE_POPULAR,
+            params: Optional[Dict[str, torch.Tensor]] = None):
         """Sync outer state with the group and adopt what wins the election
-        into the outer vector, momentum and step. Take the adopted
-        parameters with params() or copy_outer_into()."""
-        if self.comm is None:
-            raise ValueError("sync_shared_state needs a communicator")
-        st = self.shared_state()
-        info = self.comm.sync_shared_state(st, strategy)
-        self.step = int(self._ss_step[0])
-        with torch.no_grad():
-            self._outer_vec.copy_(torch.from_numpy(self._ss_vec))
-            self._momentum_vec.copy_(torch.from_numpy(self._ss_mom))
+        into the outer vector, momentum and step; with `params`, write the
+        adopted outer parameters into them (copy_outer_into). On a peer of
+        several ranks every rank calls it: the lead syncs, and each rank
+        gets its blocks into `params`.
+        Returns the sync's info (None on the other ranks)."""
+        info = None
+        if self.lead:
+            if self.comm is None:
+                raise ValueError("sync_shared_state needs a communicator")
+            st = self.shared_state()
+            info = self.comm.sync_shared_state(st, strategy)
+            self.step = int(self._ss_step[0])
+            with torch.no_grad():
+                self._outer_vec.copy_(torch.from_numpy(self._ss_vec))
+                self._momentum_vec.copy_(torch.from_numpy(self._ss_mom))
+        if params is not None:
+            self.copy_outer_into(params)
         return info
 
 
@@ -371,11 +419,16 @@ class AsyncDiloco(Diloco):
 
     The thread only runs the ring over pinned host buffers (ctypes releases
     the GIL for the native call); it never touches the card.
+
+    On a peer of several ranks (`shards=`) the reduce runs on the lead;
+    each outer_step_async gathers the inner parameters and scatters the
+    parameters to continue from (the previous step's update applied at
+    the join), and finish() scatters those of the last one.
     """
 
     def __init__(self, comm: Optional[Communicator], params: Dict[str, torch.Tensor],
-                 cfg: DilocoConfig = DilocoConfig()):
-        super().__init__(comm, params, cfg)
+                 cfg: DilocoConfig = DilocoConfig(), shards=None):
+        super().__init__(comm, params, cfg, shards)
         self._inflight: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
         # two pinned send buffers, alternated: the next D2H fills one while
@@ -434,6 +487,15 @@ class AsyncDiloco(Diloco):
         this step's pseudo-gradient, and write the outer parameters to
         continue from (the delayed update has landed, this step's has not)
         into `inner_params` in place; the same dict is returned."""
+        if self.shards is None:
+            return self._outer_step_async(inner_params)
+        full = self.shards.gather(inner_params)
+        if self.lead:
+            self._outer_step_async(full)
+        self.shards.scatter(full, inner_params)
+        return inner_params
+
+    def _outer_step_async(self, inner_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         baseline = self._baseline if self._baseline is not None else self._outer_vec
         delta = self.codec.flat_delta_vec(baseline, inner_params, out=self._delta)
         if self._async_send[self._send_i] is None:
@@ -459,7 +521,8 @@ class AsyncDiloco(Diloco):
 
     def sync_shared_state(
             self,
-            strategy: SharedStateSyncStrategy = SharedStateSyncStrategy.ENFORCE_POPULAR):
+            strategy: SharedStateSyncStrategy = SharedStateSyncStrategy.ENFORCE_POPULAR,
+            params: Optional[Dict[str, torch.Tensor]] = None):
         """Land (or fail) the in-flight update before the election, so the
         offered state is self-consistent, and drop the baseline afterwards:
         adopted parameters invalidate it (the delta would hold the whole
@@ -467,13 +530,16 @@ class AsyncDiloco(Diloco):
         self._join_inflight()
         info = super().sync_shared_state(strategy)
         self._baseline = None
+        if params is not None:
+            self.copy_outer_into(params)
         return info
 
     def finish(self, inner_params: Optional[Dict[str, torch.Tensor]] = None):
         """Join any in-flight reduce and apply it. Writes the final outer
         parameters into `inner_params` in place and returns it, or returns
-        fresh tensors when none is given."""
-        self._join_inflight()
+        fresh tensors when none is given (a one-rank peer only)."""
+        if self.lead:
+            self._join_inflight()
         if inner_params is None:
             return self.params()
         self.copy_outer_into(inner_params)

@@ -249,6 +249,17 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return x if n == 1 else _AllToAll.apply(x, group)
 
 
+def share(group, *values: int) -> list:
+    """The group's rank 0's int values on every rank of it, as one int64
+    broadcast (rank 0 of a peer holds the comm and decides); the values
+    themselves for a one-rank peer (group None)."""
+    if group is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.int64)
+    dist.broadcast(t, dist.get_global_rank(group, 0), group=group)
+    return t.tolist()
+
+
 @torch.no_grad()
 def gather_to(x: torch.Tensor, group, dst: int = 0) -> Optional[list]:
     """Every rank's x (same shape and dtype) on the group's rank `dst`, in

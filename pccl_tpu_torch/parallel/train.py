@@ -150,8 +150,8 @@ def accum_value_and_grad(base_lg, accum_steps: int):
 
 
 def _data_axes(mesh, seq_axis, attn_fn) -> tuple:
-    """The mesh axes the batch is split over; raises where the step would
-    compute another function than the unsplit step."""
+    """The mesh axes of more than one rank the batch is split over; raises
+    where the step would compute another function than the unsplit step."""
     if seq_axis is not None:
         if seq_axis not in mesh.shape:
             raise ValueError(f"seq_axis {seq_axis!r} is not an axis of the "
@@ -160,7 +160,8 @@ def _data_axes(mesh, seq_axis, attn_fn) -> tuple:
                 getattr(attn_fn, "ring_axis", None) != seq_axis:
             raise ValueError(f"a sequence split over {seq_axis!r} needs "
                              f"attn_fn=make_ring_attn_fn(mesh, {seq_axis!r})")
-    return tuple(a for a in mesh.axis_names if a in ("dp", seq_axis))
+    return tuple(a for a in mesh.axis_names
+                 if a in ("dp", seq_axis) and mesh.size(a) > 1)
 
 
 def _mean_over(state: TrainState, loss, mesh, axes) -> torch.Tensor:

@@ -146,6 +146,12 @@ class DilocoCheckpoint:
             ...inner steps...
             dl.outer_step(state.params)
             ck.save(dl)
+
+    A Diloco of a peer of several ranks (`shards=`) keeps its outer state
+    on its lead: every rank calls save and maybe_restore, the lead saves
+    and loads, and every rank gets the step to resume from; the caller
+    then scatters the restored parameters with copy_outer_into, on every
+    rank.
     """
 
     def __init__(self, directory: str, *, keep: int = 3):
@@ -156,7 +162,10 @@ class DilocoCheckpoint:
         return {"outer": diloco.outer_vec, "momentum": diloco._momentum_vec,
                 "step": torch.tensor(diloco.step, dtype=torch.int64)}
 
-    def save(self, diloco) -> Path:
+    def save(self, diloco) -> Optional[Path]:
+        """Write the outer state; the file (None on a peer's other ranks)."""
+        if not diloco.lead:
+            return None
         return self._ck.save(diloco.step, self._tree(diloco))
 
     @torch.no_grad()
@@ -164,10 +173,14 @@ class DilocoCheckpoint:
         """Restore the newest snapshot into `diloco` in place, on its
         device, if one exists. Returns the outer step to resume from (0
         when there is none)."""
-        if self._ck.latest_step() is None:
-            return 0
-        got = self._ck.load(self._tree(diloco))
-        diloco.outer_vec.copy_(got["outer"])
-        diloco._momentum_vec.copy_(got["momentum"])
-        diloco.step = int(got["step"])
-        return diloco.step
+        step = 0
+        if diloco.lead and self._ck.latest_step() is not None:
+            got = self._ck.load(self._tree(diloco))
+            diloco.outer_vec.copy_(got["outer"])
+            diloco._momentum_vec.copy_(got["momentum"])
+            diloco.step = step = int(got["step"])
+        if diloco.shards is not None:
+            from ..parallel.mesh import share
+
+            step, = share(diloco.shards.group, step)
+        return step

@@ -15,6 +15,13 @@ steps at (dp, tp) = (2, 2) 1e-4 on the losses and the gathered
 parameters, with the replicated gains bitwise equal across the ranks. The
 tp gradient of tok_emb and of the gains equals the unsharded gradient to
 fp32 summation order (1e-5 of its scale: a factor of tp fails).
+
+Where tp is larger than n_kv_head (the tiny Llama's 2 kv heads over
+tp=4), ranks share kv heads: the forward at tp=4 against JAX on a (1, 4)
+mesh and two AdamW steps there, under the Llama bounds above, with the
+ranks that share a kv head holding it bitwise equal. loss_chunk under
+tp=4: the loss and the gathered gradients within 1e-4 of JAX's
+loss_chunk on a (1, 4) mesh, in fp32.
 """
 
 import jax
@@ -112,16 +119,103 @@ def test_shard_gather_round_trip_is_bitwise(world, family, tp):
 
 
 def test_tp_that_splits_kv_heads_raises():
+    """Where neither of tp and n_kv_head divides the other, a rank's q
+    heads would read its kv heads in unequal groups: the layout raises.
+    So does a tp that does not divide the vocab."""
     with pytest.raises(ValueError, match="n_kv_head"):
-        convert.tp_layout(llama.tiny_config(), 4)   # 2 kv heads over 4
+        # 3 q heads a rank over kv heads 0, 0, 1 and 1, 2, 2
+        convert.tp_layout(llama.tiny_config(n_head=6, n_kv_head=3, n_embd=96), 2)
     with pytest.raises(ValueError, match="vocab_size"):
         convert.tp_layout(gpt.tiny_config(vocab_size=510), 4)
 
 
-def test_loss_chunk_under_tp_raises(world):
+def test_shared_kv_heads_round_trip_is_bitwise(world):
+    """The tiny Llama's 2 kv heads over tp=4: ranks 0 and 1 hold k and v
+    head 0, ranks 2 and 3 head 1; gather_params(shard_params(p)) == p."""
     _, res = world
-    for msg in _ranks(res, "chunk_raises"):
-        assert msg and "loss_chunk" in msg
+    for r, g in enumerate(_ranks(res, "kv_shared_roundtrip")):
+        assert g["equal"], r
+        full = g["full"]
+        kv = full.shape[-1] // 2
+        dh = kv // 2
+        h = r // 2
+        want = np.concatenate([full[..., s * kv + h * dh:s * kv + (h + 1) * dh]
+                               for s in range(2)], -1)
+        np.testing.assert_array_equal(g["local"], want)
+
+
+def _jax_1x4(np_params, cfg):
+    mesh = jmesh.make_mesh(jax.devices()[:N], ("dp", "tp"), (1, 4))
+    sh = jtrain.family(cfg)[1](mesh, cfg)
+    return mesh, {k: jax.device_put(jnp.asarray(v), sh[k])
+                  for k, v in np_params.items()}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_llama_forward_sharing_kv_heads_at_tp4_matches_jax(world, dtype):
+    """GQA at tp=4 over 2 kv heads (1 q head over 1 shared kv head a
+    rank) against JAX's forward on a (1, 4) mesh."""
+    inputs, res = world
+    np_params, tokens = inputs["llama"]
+    jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+    cfg = jllama.tiny_config(block_size=64, compute_dtype=jdt)
+    mesh, params = _jax_1x4(np_params, cfg)
+    tok = jax.device_put(jnp.asarray(tokens), NamedSharding(mesh, P("dp", None)))
+    want = np.asarray(jax.jit(lambda p, t: jllama.forward(p, t, cfg))(params, tok))
+    got = _assemble(_ranks(res, f"kv_shared_{dtype}"), (1, 4))
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0.1, atol=0.1)
+        assert np.mean(np.abs(got - want)) < 0.03
+
+
+def test_llama_train_steps_sharing_kv_heads_at_tp4_match_jax(world):
+    """Two AdamW steps at tp=4 over 2 kv heads against JAX's
+    build_train_step on a (1, 4) mesh: each shared kv head's gradient is
+    the sum over the ranks that hold it, so their copies stay bitwise
+    equal and the gathered parameters are JAX's."""
+    inputs, res = world
+    np_params, batches, lr = inputs["train_llama"]
+    cfg = jllama.tiny_config(compute_dtype=jnp.float32)
+    mesh, params = _jax_1x4(np_params, cfg)
+    _, tx, _ = jtrain.make_train_state(jax.random.PRNGKey(0), cfg, mesh, lr=lr)
+    opt_state = tx.init(params)
+    step = jtrain.build_train_step(cfg, tx, mesh)
+    jlosses = []
+    for tok, tgt in batches:
+        params, opt_state, loss = step(params, opt_state, jnp.asarray(tok),
+                                       jnp.asarray(tgt))
+        jlosses.append(float(loss))
+    got = _ranks(res, "kv_shared_train")
+    for r in range(N):
+        losses, tparams, kv = got[r]
+        np.testing.assert_allclose(losses, jlosses, rtol=1e-4, atol=1e-4)
+        for name, want in params.items():
+            np.testing.assert_allclose(tparams[name], np.asarray(want),
+                                       rtol=1e-4, atol=1e-4, err_msg=name)
+        assert np.array_equal(kv, got[r - r % 2][2]), \
+            f"rank {r}'s kv block differs from its sharer's"
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_loss_chunk_under_tp_matches_jax(world, family):
+    """build_loss_and_grad(loss_chunk=16) at tp=4 (the tied GPT head, and
+    the untied Llama head over shared kv heads): the loss and the gathered
+    gradients within 1e-4 of JAX's loss_chunk on a (1, 4) mesh."""
+    inputs, res = world
+    jmod = jgpt if family == "gpt" else jllama
+    np_params, batches, _ = inputs[f"train_{family}"]
+    cfg = jmod.tiny_config(compute_dtype=jnp.float32)
+    _, params = _jax_1x4(np_params, cfg)
+    tok, tgt = (jnp.asarray(a) for a in batches[0])
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: jmod.loss_fn(p, tok, tgt, cfg, None, False, 16)))(params)
+    for loss, grads in _ranks(res, f"chunk_{family}"):
+        np.testing.assert_allclose(loss, float(want_loss), rtol=1e-4, atol=1e-4)
+        for name, g in want.items():
+            np.testing.assert_allclose(grads[name], np.asarray(g), rtol=1e-4,
+                                       atol=1e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -1,6 +1,7 @@
 """A gloo world of spawned ranks for the port's collective tests, and the
 cases each rank runs (tests/test_torch_sp.py, tests/test_torch_quantized.py,
-tests/test_torch_tp.py, tests/test_torch_pipeline.py, tests/test_torch_moe.py).
+tests/test_torch_tp.py, tests/test_torch_pipeline.py, tests/test_torch_moe.py,
+tests/test_torch_diloco_mesh.py).
 
 `run_world(cases, inputs)` spawns `world` processes on the CPU, joins them
 into one torch.distributed gloo group through a FileStore, and has each run
@@ -337,15 +338,39 @@ def tp_cases(rank: int, inputs: dict) -> dict:
         return {str(m): grads(llama, "train_llama", tp2, remat=m)
                 for m in (False, True, "dots", "sqrt")}
 
-    def chunk_raises():
-        np_params, batches, _ = inputs["train_gpt"]
-        cfg, local = _tp_params(gpt, np_params, torch.float32, tp4)
+    def chunked(mod, key):
+        # loss_chunk under tp=4: the loss and the gathered gradients
+        np_params, batches, _ = inputs[key]
+        cfg, full = _tp_params(mod, np_params, torch.float32)
+        state = train.make_train_state(0, cfg, "cpu", params=full, mesh=tp4)
+        lg = train.build_loss_and_grad(cfg, loss_chunk=16, mesh=tp4)
         tok, tgt = (torch.from_numpy(a) for a in batches[0])
-        try:
-            gpt.loss_fn(local, tok, tgt, cfg, loss_chunk=32, tp=tp4.group("tp"))
-        except NotImplementedError as e:
-            return str(e)
-        return None
+        loss = lg(state, tok, tgt).item()
+        gr = convert.gather_params({n: p.grad for n, p in state.params.items()},
+                                   cfg, tp4)
+        return loss, {n: _np(g) for n, g in gr.items()}
+
+    def shared_kv_roundtrip():
+        # the tiny Llama's 2 kv heads over tp=4: ranks 0, 1 hold kv head 0
+        cfg = llama.tiny_config()
+        full = llama.init_params(torch.Generator().manual_seed(4), cfg)
+        local = convert.shard_params(full, cfg, tp4)
+        back = convert.gather_params(local, cfg, tp4)
+        return {"equal": all(torch.equal(back[k], full[k]) for k in full),
+                "local": _np(local["attn_kv"]), "full": _np(full["attn_kv"])}
+
+    def shared_kv_steps():
+        # two AdamW steps of the tiny Llama (2 kv heads) at tp=4
+        np_params, batches, lr = inputs["train_llama"]
+        cfg, full = _tp_params(llama, np_params, torch.float32)
+        state = train.make_train_state(0, cfg, "cpu", lr=lr, params=full,
+                                       mesh=tp4)
+        step = train.build_train_step(cfg, mesh=tp4)
+        losses = [step(state, torch.from_numpy(tok), torch.from_numpy(tgt)).item()
+                  for tok, tgt in batches]
+        gathered = convert.gather_params(state.params, cfg, tp4)
+        return losses, {k: _np(v) for k, v in gathered.items()}, \
+            _np(state.params["attn_kv"])
 
     for fam, mod in (("gpt", gpt), ("llama", llama)):
         for tp in (2, 4):
@@ -360,7 +385,12 @@ def tp_cases(rank: int, inputs: dict) -> dict:
     _run_case(res, "train_llama", lambda: steps(llama, "train_llama"))
     _run_case(res, "transposes", transposes)
     _run_case(res, "remat", remat)
-    _run_case(res, "chunk_raises", chunk_raises)
+    _run_case(res, "chunk_gpt", lambda: chunked(gpt, "train_gpt"))
+    _run_case(res, "chunk_llama", lambda: chunked(llama, "train_llama"))
+    _run_case(res, "kv_shared_roundtrip", shared_kv_roundtrip)
+    _run_case(res, "kv_shared_fp32", lambda: forward(llama, "llama", torch.float32, tp4))
+    _run_case(res, "kv_shared_bf16", lambda: forward(llama, "llama", torch.bfloat16, tp4))
+    _run_case(res, "kv_shared_train", shared_kv_steps)
     return res
 
 
@@ -460,4 +490,90 @@ def moe_cases(rank: int, inputs: dict) -> dict:
     _run_case(res, "grads", lambda: run("grad", 2, 4.0, grad=True))
     _run_case(res, "drops", lambda: run("grad", 2, 0.01))
     _run_case(res, "ragged", lambda: run("ragged", 4, 1.0))
+    return res
+
+
+# ------------------------------------------------------------ DiLoCo mesh
+
+def mesh_cases(rank: int, inputs: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from pccl_tpu_torch.models import convert, llama
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+    from pccl_tpu_torch.parallel import train
+    from pccl_tpu_torch.parallel.codec import build_codec
+    from pccl_tpu_torch.parallel.diloco import Diloco
+
+    res = {}
+    mesh = mesh_lib.make_mesh(("dp", "tp"), (1, 2), backend="gloo")
+
+    def adoption():
+        # a joiner's adoption on a peer of 2 ranks: the lead's sync writes
+        # the winning outer state into its shared-state buffers (a stand-in
+        # comm does here), and every rank gets its blocks of it
+        cfg = llama.tiny_config(compute_dtype=torch.float32)
+        state = train.make_train_state(0, cfg, "cpu", mesh=mesh)
+        shards = convert.MeshShards(cfg, mesh)
+        dl = Diloco(None, state.params, shards=shards)
+        adopted = inputs["adopted"]
+        if shards.lead:
+            class Won:
+                def sync_shared_state(self, st, strategy):
+                    np.copyto(dl._ss_vec, adopted)
+                    dl._ss_mom[:] = 0.5
+                    dl._ss_step[0] = 7
+                    return "info"
+
+            dl.comm = Won()
+        info = dl.sync_shared_state(params=state.params)
+        full = convert.gather_params(state.params, cfg, mesh)
+        want = build_codec(full).unflat(torch.from_numpy(adopted))
+        return {"info": info, "step": dl.step, "digest": dl.digest(),
+                "equal": all(torch.equal(full[k], want[k]) for k in want)}
+
+    _run_case(res, "adoption", adoption)
+    return res
+
+
+def diloco_run(batches, inner_steps: int, lr: float, mesh=None):
+    """Sync DiLoCo with no ring (one peer) of the fp32 nano GPT from seed
+    0, on the whole model or, with a (dp, tp) mesh, as a peer of its
+    ranks (Diloco(shards=MeshShards), build_train_step(mesh=)), an outer
+    step after every `inner_steps` of `batches` ([(tokens, targets)],
+    numpy). Returns the outer vector (None on a peer's other ranks) and
+    the BLAKE2b of this rank's parameters gathered over its tp group."""
+    import hashlib
+
+    import torch
+
+    from pccl_tpu_torch.models import convert, gpt
+    from pccl_tpu_torch.parallel import train
+    from pccl_tpu_torch.parallel.codec import build_codec
+    from pccl_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+
+    cfg = gpt.named_config("nano", block_size=batches[0][0].shape[1],
+                           compute_dtype=torch.float32)
+    state = train.make_train_state(0, cfg, "cpu", lr=lr, mesh=mesh)
+    step = train.build_train_step(cfg, mesh=mesh)
+    shards = None if mesh is None else convert.MeshShards(cfg, mesh)
+    dl = Diloco(None, state.params,
+                DilocoConfig(inner_steps=inner_steps, outer_lr=0.7), shards=shards)
+    for i, (tok, tgt) in enumerate(batches):
+        step(state, torch.from_numpy(tok), torch.from_numpy(tgt))
+        if (i + 1) % inner_steps == 0:
+            dl.outer_step(state.params)
+    full = state.params if mesh is None else \
+        convert.gather_params(state.params, cfg, mesh)
+    flat = build_codec(full).flat(full).detach()
+    return (_np(dl.outer_vec) if dl.lead else None,
+            hashlib.blake2b(flat.numpy().data, digest_size=16).hexdigest())
+
+
+def dp_tp_cases(rank: int, inputs: dict) -> dict:
+    from pccl_tpu_torch.parallel import mesh as mesh_lib
+
+    res = {}
+    mesh = mesh_lib.make_mesh(("dp", "tp"), (2, 4), backend="gloo")
+    _run_case(res, "diloco", lambda: diloco_run(mesh=mesh, **inputs))
     return res
