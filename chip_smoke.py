@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero:
    steps (causal and not, and at Dh 128 with GQA), phase 14's tp
    ranks' blocks (Llama-700m at tp=4: 3 q heads over 1 kv head; GPT-2 at
    tp=2: 6 heads, at B=8 and at the (2, 2) mesh's B=2), phase 15's
-   pipeline stages (one GPT-2 sequence) and phase 18a's Llama-700m peer
-   of 2 tp ranks (6 q heads over 2 kv heads, `tp2_llama`);
+   pipeline stages (one GPT-2 sequence), phase 18a's Llama-700m peer
+   of 2 tp ranks (6 q heads over 2 kv heads, `tp2_llama`), and phase
+   19's head dims 16 and 32 (`nano`, `tiny_gqa` and two ragged
+   non-causal walks), which run the Dh 64 kernels at a padded width;
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
@@ -54,7 +56,7 @@ Phases, in order; any failure exits non-zero:
    print equal digests at every common step and equal final parameters;
    every kernel (K1-K3 and H1) is launched on every peer;
 7. main path, async DiLoCo on Llama-700m (GQA: 12 q heads over 4 kv heads,
-   head dim 128): a master and two `async_diloco` peers (B=2, T=2048, 8
+   head dim 128): a master and two `async_diloco` peers (B=2, T=2048, 4
    inner steps, 3 outer steps). Every line must show world 2 and a finite
    loss, K1-K3 launched on both peers, and equal outer-state digests at
    every outer step and after finish(), and the --profile table of each;
@@ -191,6 +193,20 @@ Phases, in order; any failure exits non-zero:
    grid sync after the first must move 0 bytes. Logs tok_s, outer_s,
    gather_s and scatter_s (the outer step's gather to rank 0 and scatter
    back), join_s, each rank's launches and the peaks.
+19. the examples at their default command line, on the card: `python -m
+   pccl_tpu_torch.examples.sync_diloco --solo` (GPT `nano`, Dh 16) and
+   `async_diloco --solo --family llama --model tiny` (Dh 32, 4 q over 2
+   kv heads), at once; each must exit 0 (its loss fell), print world 1
+   and K1-K3 launches at every outer step, and FINAL;
+20. the fault-tolerance soak with CUDA shared states: `python -m
+   pccl_tpu_torch.examples.stress.stress_orchestrator --device cuda
+   --duration 45 --peers 3 --sync-churn 1048576 --stall-seconds 60
+   --sync-degrade-mbit 0`: a master and three `ft_peer` processes on the
+   card, dying at random and relaunched, a joiner flood and a seeder
+   kill; each peer's 4 MiB state a `TensorInfo.from_torch_device` entry
+   hashed by H1 on every sync. It must print SOAK PASSED with a relaunch
+   or more and a SYNC SUMMARY with no wrong adoption, no failed sync and
+   H1 launches (log `soak.log`).
 
 Every peer's FINAL line reports its own peak host RSS: each is started
 through a relay that forks it (utils/rss.relay_argv): a user-space kernel
@@ -265,7 +281,16 @@ SHAPES = [
     ("pp", dict(B=1, T=1024, H=12, Hkv=12, D=64, causal=True)),
     # phase 18a's Llama-700m peer of 2 tp ranks: 6 q heads over 2 kv heads
     ("tp2_llama", dict(B=2, T=2048, H=6, Hkv=2, D=128, causal=True)),
+    # phase 19's examples at their defaults: GPT `nano` (Dh 16) and Llama
+    # `tiny` (Dh 32, 4 q over 2 kv heads), which run the Dh 64 kernels at a
+    # padded width; and ragged non-causal walks at both head dims
+    ("nano", dict(B=8, T=64, H=4, Hkv=4, D=16, causal=True)),
+    ("tiny_gqa", dict(B=8, T=64, H=4, Hkv=2, D=32, causal=True)),
+    ("ragged16", dict(B=2, T=100, H=4, Hkv=2, D=16, causal=False)),
+    ("ragged32", dict(B=2, T=200, H=4, Hkv=4, D=32, causal=False)),
 ]
+# the shapes whose outputs must also fail the check with one tile skipped
+CONTROL_SHAPES = ("main", "nano", "tiny_gqa")
 WITH_LSE_SHAPES = ("sp", "sp_causal", "sp_gqa")
 
 # Each output is held two ways, so that neither its largest elements nor its
@@ -289,7 +314,10 @@ MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
 # 48 steps: the late joiner adopts near step 14 and must train 10 or more
 # with the others (80 until the smoke grew phase 18)
 DDP = dict(model="gpt2", block=1024, batch=8, steps=48)
-ASYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=8,
+# 4 inner steps (once 8, cut to make room for phases 19 and 20): the
+# checks are digests and launches at every outer step, which 4 hold as
+# well as 8
+ASYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=4,
              outer_steps=3)
 LLAMA700M_PARAMS = 702_359_040
 PEER_TIMEOUT_S = 600
@@ -505,7 +533,9 @@ def check_the_check(qf, kf, vf, dof, lse, delta, causal, refs) -> None:
     """The check must reject what a kernel that skips one 64-wide tile of
     its loop would give: out and dq without one k tile's v (its P.V and
     dO.V^T shares), dk and dv without one q tile's share. The tile sits at
-    T/2, so under the causal mask only the deep rows miss it."""
+    T/2, so under the causal mask only the deep rows miss it; at T = 64
+    (the `nano` and `tiny_gqa` shapes) it is rows 32..63, half of the one
+    tile."""
     from pccl_tpu_torch.ops import flash_attention as fa
 
     t0 = qf.shape[1] // 2
@@ -556,7 +586,7 @@ def phase_kernels() -> dict:
         pairs = (("out", out, ref_out), ("lse", lse, ref_lse), ("dq", dq, ref_dq),
                  ("dk", dk, ref_dk), ("dv", dv, ref_dv))
         errs = {name: compare(name, got, ref) for name, got, ref in pairs}
-        if tag == "main":
+        if tag in CONTROL_SHAPES:
             check_the_check(qf, kf, vf, dof, ref_lse, delta, causal, dict(
                 (name, ref) for name, _, ref in pairs))
 
@@ -1138,7 +1168,7 @@ def phase_async() -> dict:
          "--inner-steps", str(a["inner_steps"]),
          "--outer-steps", str(a["outer_steps"]),
          "--device", "cuda", "--attn", "flash", "--profile",
-         # 24 steps from random init need not show learning; the checks
+         # 12 steps from random init need not show learning; the checks
          # here are the ring's invariants
          "--no-descent-check"])
     records, finals = [], []
@@ -2859,6 +2889,123 @@ def phase_mesh() -> dict:
                          for name in FLASH}}
 
 
+# ------------------------------------------------------------------ phase 19
+
+# the port's examples at their default command line (GPT `nano`, Dh 16)
+# and at Llama `tiny` (Dh 32, GQA): log name, module, arguments, the line
+# of an outer step, the index of its K1 launch count in the line's groups,
+# and the outer steps its defaults run
+EXAMPLES = [
+    ("example_sync_nano.log", "pccl_tpu_torch.examples.sync_diloco",
+     ["--solo"], LINE, 6, 8),
+    ("example_async_tiny.log", "pccl_tpu_torch.examples.async_diloco",
+     ["--solo", "--family", "llama", "--model", "tiny"], ASYNC_LINE, 7, 10),
+]
+
+
+def phase_examples() -> dict:
+    """Each example of EXAMPLES in a process of its own, both at once, on
+    the card with no device or attention flag: each must exit 0 (the loss
+    fell: the examples' own descent check), print `world 1` and K1-K3
+    launches at every outer step, and FINAL. Returns the launch totals."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    procs, files = [], []
+    try:
+        for name, module, args, *_ in EXAMPLES:
+            spawn(procs, files, env, name, [module, *args])
+        wait_all(procs, time.time() + PEER_TIMEOUT_S)
+    finally:
+        for p in procs:
+            stop(p)
+        for f in files:
+            f.close()
+        dump_logs([e[0] for e in EXAMPLES])
+    totals = {name: 0 for name in FLASH}
+    for (name, module, args, line, k1, outer_steps), proc in zip(EXAMPLES, procs):
+        text = (LOG_DIR / name).read_text()
+        if proc.returncode != 0:
+            raise SmokeError(f"19: {module} exited {proc.returncode}")
+        rows = [m.groups() for m in line.finditer(text)]
+        if len(rows) != outer_steps or "FINAL" not in text:
+            raise SmokeError(f"19: {module}: {len(rows)} outer lines, not "
+                             f"{outer_steps}, or no FINAL")
+        for row in rows:
+            if int(row[2]) != 1 or not math.isfinite(float(row[1])):
+                raise SmokeError(f"19: {module}: world {row[2]}, loss {row[1]}")
+            for kernel, n in zip(FLASH, row[k1:k1 + 3]):
+                if int(n) <= 0:
+                    raise SmokeError(f"19: {module}: {kernel} not launched at "
+                                     f"outer step {row[0]}")
+                totals[kernel] += int(n)
+        log(f"19: {module} {' '.join(args)}: "
+            f"{outer_steps} outer steps at world 1, loss {rows[0][1]} -> "
+            f"{rows[-1][1]}, K1-K3 at every step")
+    log(f"19: launches {totals}")
+    return {"launches": totals}
+
+
+# ------------------------------------------------------------------ phase 20
+
+# the soak's shared-state lane on the card: the JAX orchestrator's defaults
+# (die-prob 0.002, chunk 256 KiB, 250 Mbit/s pacing) with a 4 MiB state,
+# and no seeder-edge degrade. Entries hashed on the card carry no chunk
+# leaves, so their syncs ride the legacy transport, whose serves have no
+# watchdog: the degrade's gate could never trip here (PERF.md, section 6)
+SOAK = dict(duration=45, peers=3, sync_churn=1048576, stall_seconds=60,
+            degrade_mbit=0)
+SOAK_TIMEOUT_S = 240
+SOAK_SUMMARY = re.compile(r"^SYNC SUMMARY: (.*)$", re.M)
+SOAK_PASSED = re.compile(r"^SOAK PASSED: (\d+) heartbeat steps, (\d+) relaunches",
+                         re.M)
+
+
+def phase_soak() -> dict:
+    """The fault-tolerance soak with CUDA shared states: the port's
+    orchestrator and its master and peers on the card, each peer's state a
+    TensorInfo.from_torch_device entry hashed by H1 on every sync. It must
+    print SOAK PASSED with a relaunch or more, and a SYNC SUMMARY with no
+    wrong adoption, no failed sync (on live peers and over every peer
+    life) and H1 launches. Returns H1's launches (the peers' last STATS
+    lines, summed by the orchestrator)."""
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    master_port, = free_ports(1)
+    base, = free_ports(1, offsets=tuple(16 * i + o for i in range(SOAK["peers"])
+                                        for o in (0, 4, 8)))
+    cmd = [sys.executable, "-m", "pccl_tpu_torch.examples.stress.stress_orchestrator",
+           "--device", "cuda", "--duration", str(SOAK["duration"]),
+           "--peers", str(SOAK["peers"]), "--sync-churn", str(SOAK["sync_churn"]),
+           "--stall-seconds", str(SOAK["stall_seconds"]),
+           "--sync-degrade-mbit", str(SOAK["degrade_mbit"]),
+           "--master-port", str(master_port), "--base-port", str(base)]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    try:
+        r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                           timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"20: the soak ran past {SOAK_TIMEOUT_S} s") from None
+    (LOG_DIR / "soak.log").write_text(r.stdout + r.stderr)
+    dump_logs(["soak.log"])
+    passed = SOAK_PASSED.search(r.stdout)
+    summary = SOAK_SUMMARY.search(r.stdout)
+    if r.returncode != 0 or passed is None or summary is None:
+        raise SmokeError(f"20: the soak exited {r.returncode} without SOAK PASSED "
+                         f"and a SYNC SUMMARY")
+    fields = {k: int(v) for k, v in (kv.split("=") for kv in summary.group(1).split())}
+    steps, relaunches = int(passed.group(1)), int(passed.group(2))
+    if relaunches < 1:
+        raise SmokeError("20: no peer was relaunched")
+    bad = {k: fields[k] for k in ("wrong", "aborted", "syncs_failed") if fields[k]}
+    if bad or fields["h1_launches"] < 1:
+        raise SmokeError(f"20: SYNC SUMMARY {fields}")
+    log(f"20: soak on the card: {steps} heartbeat steps, {relaunches} relaunches; "
+        f"legacy_syncs {fields['legacy_syncs']}, chunks_fetched "
+        f"{fields['chunks_fetched']}, syncs_ok {fields['syncs_ok']}, wrong 0, "
+        f"failed 0; H1 launches {fields['h1_launches']}")
+    return {"launches": {"simplehash_tpu": fields["h1_launches"]}, "steps": steps,
+            "relaunches": relaunches, "summary": fields}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2919,8 +3066,11 @@ def main() -> int:
     # phase 18's peers and their ranks are processes of their own, whose
     # counts start at 0
     mesh = timed("diloco mesh", phase_mesh)
+    # phases 19 and 20 run in processes of their own, whose counts start at 0
+    examples = timed("examples", phase_examples)
+    soak = timed("soak", phase_soak)
     paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp,
-             tp, pp, ddp_tp, mesh)
+             tp, pp, ddp_tp, mesh, examples, soak)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -2950,6 +3100,9 @@ def main() -> int:
             row["pp"] = at(kres["pp"])
             # and at phase 18a's Llama-700m peer of 2 tp ranks
             row["tp2_llama"] = at(kres["tp2_llama"])
+            # and at phase 19's examples' defaults (Dh 16 and 32, padded)
+            row["nano"] = at(kres["nano"])
+            row["tiny_gqa"] = at(kres["tiny_gqa"])
             # through flash_attention_with_lse with an lse cotangent (3a)
             row["with_lse_max_abs_err"] = max(
                 e[o]["max_abs"] for e in lres.values() for o in out_names[name])

@@ -14,8 +14,19 @@ CUDA. Subpackages:
   layout and its checkpointing (remat) modes;
 - `parallel`: the train step (with gradient accumulation), the flat-vector
   codec, the ring retry policy and sync and async DiLoCo;
-- `utils`: the token pipeline, the section profiler and checkpoints;
-- `examples`: `python -m pccl_tpu_torch.examples.sync_diloco`.
+- `utils`: the token pipeline, the section profiler, checkpoints and the
+  leveled logger;
+- `examples`: `python -m pccl_tpu_torch.examples.sync_diloco`, and the
+  fault-tolerance soak, `python -m
+  pccl_tpu_torch.examples.stress.stress_orchestrator`.
 """
 
 __version__ = "0.1.0"
+
+BUILD_INFO = {
+    "name": "pccl_tpu_torch",
+    "version": __version__,
+    # the wire protocol of the native core, shared with the JAX package: rev
+    # 2 carries family-tagged addresses
+    "protocol": "PCCP/2",
+}

@@ -224,8 +224,24 @@ def _declare(lib):
     lib.pccltMasterGetHealth.restype = c.c_int
     lib.pccltMasterGetHealth.argtypes = [c.c_void_p, c.c_char_p, c.c_uint64,
                                          P(c.c_uint64)]
+    lib.pccltInit.restype = c.c_int
+    lib.pccltInit.argtypes = []
     lib.pccltGetBuildInfo.restype = c.c_char_p
     lib.pccltGetBuildInfo.argtypes = []
+
+    # fleet-scale load and timing hooks: a flood of observer sessions
+    # pushing telemetry digests, the dispatcher's admission latency, and a
+    # journal's write and cold-restart replay
+    lib.pccltDigestFlood.restype = c.c_int
+    lib.pccltDigestFlood.argtypes = [c.c_char_p, c.c_uint16, c.c_uint32,
+                                     c.c_uint32, c.c_double, c.c_double,
+                                     c.c_uint32, P(c.c_uint64), P(c.c_double)]
+    lib.pccltAdmissionProbe.restype = c.c_int
+    lib.pccltAdmissionProbe.argtypes = [c.c_char_p, c.c_uint16, c.c_uint32,
+                                        P(c.c_double), P(c.c_double)]
+    lib.pccltMasterReplayBench.restype = c.c_int
+    lib.pccltMasterReplayBench.argtypes = [c.c_char_p, c.c_uint32,
+                                           P(c.c_double), P(c.c_double)]
 
     lib.pccltCreateCommunicator.restype = c.c_int
     lib.pccltCreateCommunicator.argtypes = [P(CommCreateParams), P(c.c_void_p)]
@@ -287,6 +303,11 @@ def _declare(lib):
     lib.pccltTraceDump.argtypes = [c.c_char_p]
     lib.pccltNetemInject.restype = c.c_int
     lib.pccltNetemInject.argtypes = [c.c_char_p, c.c_char_p]
+    # what a connection to ip:port would emulate under the PCCLT_WIRE_* env
+    lib.pccltWireModelQuery.restype = c.c_int
+    lib.pccltWireModelQuery.argtypes = [c.c_char_p, c.c_uint16, P(c.c_double),
+                                        P(c.c_double), P(c.c_double),
+                                        P(c.c_double)]
 
     lib.pccltHashBuffer.restype = c.c_uint64
     lib.pccltHashBuffer.argtypes = [c.c_int, c.c_void_p, c.c_uint64]

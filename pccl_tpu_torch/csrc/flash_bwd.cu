@@ -35,6 +35,13 @@
 // One consumer over 64 q rows rather than two over 128, and BK = 64 at both
 // head dims: the faster form at every shape chip_smoke.py measures, with
 // up to three blocks an SM (PERF.md, section 6).
+//
+// Head dims 16 and 32 run the Dh = 64 instantiation at a padded width
+// (hopper.cuh): the q, do, k and v tiles' columns past the true d read as
+// zeros, so S, dP and dQ's first d columns are exact, and only d columns
+// of dQ are stored; the scale is 1/sqrt(d). DqCfg<64> is the layout they
+// use, so its static_assert (the dQ staging fits over the q and do
+// tiles) is the one that holds for them.
 #include "hopper.cuh"
 
 namespace flash {
@@ -65,8 +72,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int T, int H, int Hkv, int causal,
-                    float scale) {
+                    bf16* __restrict__ dq, int T, int H, int Hkv, int d,
+                    int causal, float scale) {
     using L = DqCfg<D>;
     constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
     extern __shared__ unsigned char smem_raw[];
@@ -196,26 +203,27 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
 
         wg_bar(1);  // every warp's products have read the q and do tiles
-        store_rows<D>(acc, 1.0f, 1.0f, sQ, dq + (static_cast<size_t>(b) * T * H + h) * D,
-                      static_cast<size_t>(H) * D, q0, T, 1);
+        store_rows<D>(acc, 1.0f, 1.0f, sQ, dq + (static_cast<size_t>(b) * T * H + h) * d,
+                      static_cast<size_t>(H) * d, q0, T, d, 1);
     }
 }
 
+// D: the width computed at (64 or 128); d: the tensors' head dim, d <= D.
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int T, int H,
-              int Hkv, int causal, cudaStream_t stream) {
+              int Hkv, int d, int causal, cudaStream_t stream) {
     using L = DqCfg<D>;
     if (int e = allow_smem<flash_bwd_dq_kernel<D>>(L::BYTES)) return e;
     CUtensorMap tq, tk, tv, tdo;
-    if (int e = make_map(&tq, q, B, T, H, D, L::BQ)) return e;
-    if (int e = make_map(&tk, k, B, T, Hkv, D, L::BK)) return e;
-    if (int e = make_map(&tv, v, B, T, Hkv, D, L::BK)) return e;
-    if (int e = make_map(&tdo, dout, B, T, H, D, L::BQ)) return e;
+    if (int e = make_map(&tq, q, B, T, H, d, L::BQ)) return e;
+    if (int e = make_map(&tk, k, B, T, Hkv, d, L::BK)) return e;
+    if (int e = make_map(&tv, v, B, T, Hkv, d, L::BK)) return e;
+    if (int e = make_map(&tdo, dout, B, T, H, d, L::BQ)) return e;
     const dim3 grid((T + L::BQ - 1) / L::BQ, B * H);
     flash_bwd_dq_kernel<D><<<grid, L::THREADS, L::BYTES, stream>>>(
         tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), T, H, Hkv, causal, 1.0f / sqrtf(static_cast<float>(D)));
+        static_cast<bf16*>(dq), T, H, Hkv, d, causal, 1.0f / sqrtf(static_cast<float>(d)));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,9 +239,11 @@ extern "C" int pccl_flash_bwd_dq(const void* q, const void* k, const void* v,
     if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    if (D == 64)
-        return flash::launch_dq<64>(q, k, v, dout, lse, delta, dq, B, T, H, Hkv, causal, s);
+    if (D == 16 || D == 32 || D == 64)
+        return flash::launch_dq<64>(q, k, v, dout, lse, delta, dq, B, T, H, Hkv, D,
+                                    causal, s);
     if (D == 128)
-        return flash::launch_dq<128>(q, k, v, dout, lse, delta, dq, B, T, H, Hkv, causal, s);
+        return flash::launch_dq<128>(q, k, v, dout, lse, delta, dq, B, T, H, Hkv, D,
+                                     causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

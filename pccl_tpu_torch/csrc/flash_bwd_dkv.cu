@@ -38,6 +38,13 @@
 // One consumer warpgroup rather than two over 128 k rows: the two-consumer
 // form spilled at Dh = 128 and was slower at every shape chip_smoke.py
 // measures (PERF.md, section 6, PR 2).
+//
+// Head dims 16 and 32 run the Dh = 64 instantiation at a padded width
+// (hopper.cuh): the tiles' columns past the true d read as zeros, so S^T,
+// dP^T and the first d columns of dK and dV are exact, and only d columns
+// are stored; the scale is 1/sqrt(d). They take DkvCfg<64>'s BQ = 64 and
+// 2 stages, whose registers (32 + 32 fp32 of dK and dV a thread) and ring
+// bytes are the Dh = 64 kernel's.
 #include "hopper.cuh"
 
 namespace flash {
@@ -88,7 +95,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
-                     int Hkv, int causal, float scale) {
+                     int Hkv, int d, int causal, float scale) {
     using L = DkvCfg<D>;
     constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
     extern __shared__ unsigned char smem_raw[];
@@ -227,30 +234,31 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
             ring.next();
         }
 
-        const size_t off = (static_cast<size_t>(b) * T * Hkv + hk) * D;
-        const size_t stride = static_cast<size_t>(Hkv) * D;
-        store_rows<D>(acc_v, 1.0f, 1.0f, sSt, dv + off, stride, row0, T, 1);
-        store_rows<D>(acc_k, 1.0f, 1.0f, sSt, dk + off, stride, row0, T, 1);
+        const size_t off = (static_cast<size_t>(b) * T * Hkv + hk) * d;
+        const size_t stride = static_cast<size_t>(Hkv) * d;
+        store_rows<D>(acc_v, 1.0f, 1.0f, sSt, dv + off, stride, row0, T, d, 1);
+        store_rows<D>(acc_k, 1.0f, 1.0f, sSt, dk + off, stride, row0, T, d, 1);
     }
 }
 
+// D: the width computed at (64 or 128); d: the tensors' head dim, d <= D.
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
-               int T, int H, int Hkv, int causal, cudaStream_t stream) {
+               int T, int H, int Hkv, int d, int causal, cudaStream_t stream) {
     using L = DkvCfg<D>;
     if (int e = allow_smem<flash_bwd_dkv_kernel<D>>(L::BYTES)) return e;
     CUtensorMap tq, tk, tv, tdo;
-    if (int e = make_map(&tq, q, B, T, H, D, L::BQ)) return e;
-    if (int e = make_map(&tk, k, B, T, Hkv, D, L::BK)) return e;
-    if (int e = make_map(&tv, v, B, T, Hkv, D, L::BK)) return e;
-    if (int e = make_map(&tdo, dout, B, T, H, D, L::BQ)) return e;
+    if (int e = make_map(&tq, q, B, T, H, d, L::BQ)) return e;
+    if (int e = make_map(&tk, k, B, T, Hkv, d, L::BK)) return e;
+    if (int e = make_map(&tv, v, B, T, Hkv, d, L::BK)) return e;
+    if (int e = make_map(&tdo, dout, B, T, H, d, L::BQ)) return e;
     const dim3 grid((T + L::BK - 1) / L::BK, B * Hkv);
     flash_bwd_dkv_kernel<D><<<grid, L::THREADS, L::BYTES, stream>>>(
         tq, tk, tv, tdo, static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T, H, Hkv, causal,
-        1.0f / sqrtf(static_cast<float>(D)));
+        static_cast<bf16*>(dv), T, H, Hkv, d, causal,
+        1.0f / sqrtf(static_cast<float>(d)));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,11 +276,11 @@ extern "C" int pccl_flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    if (D == 64)
+    if (D == 16 || D == 32 || D == 64)
         return flash::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv,
-                                     causal, s);
+                                     D, causal, s);
     if (D == 128)
         return flash::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv,
-                                      causal, s);
+                                      D, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,6 +36,12 @@
 // Nothing crosses blocks and there are no atomics, so results are
 // deterministic. Left for later: ordering the two warpgroups' softmax
 // against each other's wgmma (ping-pong), and a persistent grid.
+//
+// Head dims 16 and 32 (the `nano` and `tiny` presets) run the Dh = 64
+// instantiation at a padded width (hopper.cuh): TMA reads the columns past
+// the true head dim d as zeros, the products run at depth and width 64 (4x
+// and 2x the operations of the bound), and the epilogue stores d columns.
+// The scale is 1/sqrt(d) of the true d.
 #include "hopper.cuh"
 
 namespace flash {
@@ -106,8 +112,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, int Hkv, int causal,
-                 float scale) {
+                 float* __restrict__ lse, int T, int H, int Hkv, int d,
+                 int causal, float scale) {
     using L = FwdSmem<D>;
     constexpr int BQ = FWD_BQ, BK = L::BK;
     extern __shared__ unsigned char smem_raw[];
@@ -222,24 +228,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             if (ra + 8 < T) lse_bh[ra + 8] = m[1] * scale + logf(l[1]);
         }
         store_rows<D>(acc, 1.0f / l[0], 1.0f / l[1], sO + c * L::O_ELEMS,
-                      o + (static_cast<size_t>(b) * T * H + h) * D,
-                      static_cast<size_t>(H) * D, row0, T, 1 + c);
+                      o + (static_cast<size_t>(b) * T * H + h) * d,
+                      static_cast<size_t>(H) * d, row0, T, d, 1 + c);
     }
 }
 
+// D: the width computed at (64 or 128); d: the tensors' head dim, d <= D.
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               int B, int T, int H, int Hkv, int causal, cudaStream_t stream) {
+               int B, int T, int H, int Hkv, int d, int causal, cudaStream_t stream) {
     constexpr size_t smem = FwdSmem<D>::BYTES;
     if (int e = allow_smem<flash_fwd_kernel<D>>(smem)) return e;
     CUtensorMap tq, tk, tv;
-    if (int e = make_map(&tq, q, B, T, H, D, FWD_BQ)) return e;
-    if (int e = make_map(&tk, k, B, T, Hkv, D, FwdSmem<D>::BK)) return e;
-    if (int e = make_map(&tv, v, B, T, Hkv, D, FwdSmem<D>::BK)) return e;
+    if (int e = make_map(&tq, q, B, T, H, d, FWD_BQ)) return e;
+    if (int e = make_map(&tk, k, B, T, Hkv, d, FwdSmem<D>::BK)) return e;
+    if (int e = make_map(&tv, v, B, T, Hkv, d, FwdSmem<D>::BK)) return e;
     const dim3 grid((T + FWD_BQ - 1) / FWD_BQ, B * H);
     flash_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), T, H, Hkv,
-        causal, 1.0f / sqrtf(static_cast<float>(D)));
+        tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), T, H, Hkv, d,
+        causal, 1.0f / sqrtf(static_cast<float>(d)));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -254,7 +261,9 @@ extern "C" int pccl_flash_fwd(const void* q, const void* k, const void* v,
     if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    if (D == 64) return flash::launch_fwd<64>(q, k, v, o, lse, B, T, H, Hkv, causal, s);
-    if (D == 128) return flash::launch_fwd<128>(q, k, v, o, lse, B, T, H, Hkv, causal, s);
+    if (D == 16 || D == 32 || D == 64)
+        return flash::launch_fwd<64>(q, k, v, o, lse, B, T, H, Hkv, D, causal, s);
+    if (D == 128)
+        return flash::launch_fwd<128>(q, k, v, o, lse, B, T, H, Hkv, D, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

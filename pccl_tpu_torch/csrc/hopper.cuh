@@ -15,6 +15,12 @@
 //   bit is set): an 8-row group along the depth is one atom (SBO = 1024),
 //   the next 64 columns are the next panel (LBO = R * 128), and a k16 step
 //   is 16 rows, +2048 bytes.
+// Head dims below 64 (16 and 32) use the same layout at a padded width of
+// 64: the tensor map keeps the true D as its inner dimension and stride,
+// and its 64-column box reads columns D..63 as zeros (OOB fill), so every
+// product runs at depth or width 64, the zero columns add nothing to
+// Q.K^T, dO.V^T, dS.K, dS^T.Q or P^T.dO, the extra columns of P.V are
+// zeros, and the epilogue stores only the D true columns.
 #pragma once
 
 #include <cuda.h>
@@ -58,8 +64,10 @@ inline EncodeTiled encode_tiled() {
 
 // The map of one [B, T, Hn, D] bf16 operand at `base`: dims (D, Hn, T, B),
 // boxes of 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle,
-// rows past T read as zeros. Returns a cudaError_t (0 = built). The map
-// holds the address, so it is built for every call.
+// rows past T and columns past D (D = 16 or 32) read as zeros; the box's
+// bytes count in full toward the mbarrier's transaction count either way.
+// Returns a cudaError_t (0 = built). The map holds the address, so it is
+// built for every call.
 inline int make_map(CUtensorMap* map, const void* base, int B, int T, int Hn,
                     int D, int rows) {
     const EncodeTiled enc = encode_tiled();
@@ -423,13 +431,15 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Store one warpgroup's m64 x D accumulator, row r scaled by mul[(i/2)%2]
 // of its thread, as bf16 rows [row0, row0 + 64) of `dst` (row t at
-// dst + t * stride), skipping rows at or past T. Goes through `stage`
-// ([64, D + 8] bf16) so that the global stores are 16 bytes a thread; the
-// warpgroup meets at barrier `bar` before and after.
+// dst + t * stride), skipping rows at or past T; only its first `cols`
+// columns (the true head dim, a multiple of 8 up to D) are stored. Goes
+// through `stage` ([64, D + 8] bf16) so that the global stores are 16
+// bytes a thread; the warpgroup meets at barrier `bar` before and after.
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul0,
                                            float mul1, bf16* stage, bf16* dst,
-                                           size_t stride, int row0, int T, int bar) {
+                                           size_t stride, int row0, int T, int cols,
+                                           int bar) {
     constexpr int LD = D + 8;
     const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
 #pragma unroll
@@ -441,8 +451,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul0
             __floats2bfloat162_rn(acc[i] * m, acc[i + 1] * m);
     }
     wg_bar(bar);
-    for (int idx = t; idx < 64 * (D / 8); idx += 128) {
-        const int r = idx / (D / 8), ch = idx % (D / 8);
+    const int chunks = cols / 8;
+    for (int idx = t; idx < 64 * chunks; idx += 128) {
+        const int r = idx / chunks, ch = idx % chunks;
         if (row0 + r < T)
             *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + r) * stride + ch * 8) =
                 *reinterpret_cast<const uint4*>(stage + r * LD + ch * 8);

@@ -13,8 +13,10 @@ Layout: q, out [B, T, H, Dh]; k, v [B, T, Hkv, Dh] with Hkv dividing H
 
 Each wrapper takes its plain version for tensors on the CPU, and launches
 its kernel for tensors on a CUDA card (bf16, contiguous, 16-byte aligned,
-Dh 64 or 128), raising on anything else; there is no fallback from one to
-the other. A wrapper counts its kernel launches in `launches`.
+Dh 16, 32, 64 or 128: every preset of both families), raising on anything
+else, fp32 included; there is no fallback from one to the other. Dh 16
+and 32 run the Dh 64 kernels at a padded width (csrc/hopper.cuh). A
+wrapper counts its kernel launches in `launches`.
 
 The backward needs delta = rowsum(do * o) in fp32, computed here outside
 the kernels; the (out, lse) form folds the lse cotangent into it:
@@ -31,7 +33,7 @@ import torch
 from . import _build
 
 MASK = -1e30
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 
 # launches of each kernel since the last reset_launch_counts()
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}

@@ -63,7 +63,7 @@ def test_port_mirror_matches_the_header():
     pm = abi.parse_native(native)
     # the parser found what the port declares, so an empty diff means
     # something
-    assert len(pm.structs) >= 8 and len(pm.funcs) >= 37, (
+    assert len(pm.structs) >= 8 and len(pm.funcs) >= 42, (
         sorted(pm.structs), sorted(pm.funcs))
     assert all(fields for fields in pm.structs.values())
     assert all("argtypes" in e or "restype" in e for e in pm.funcs.values())
@@ -95,3 +95,21 @@ def test_a_changed_declaration_is_flagged(change):
     assert native.count(old) >= 1, f"the port no longer has {old!r}"
     found = _diff(HEADER.read_text(), native.replace(old, new, 1))
     assert found and any(word in f for f in found), found
+
+
+# the exports the fleet-scale lane and the soak load through the port: the
+# core's init, the observer flood, the admission probe, the journal replay
+# bench and the wire-model query
+FLEET_EXPORTS = ["pccltInit", "pccltDigestFlood", "pccltAdmissionProbe",
+                 "pccltMasterReplayBench", "pccltWireModelQuery"]
+
+
+@pytest.mark.parametrize("fn", FLEET_EXPORTS)
+def test_fleet_exports_are_declared_as_the_header_has_them(fn):
+    hm = abi.parse_header(HEADER.read_text())
+    entry = abi.parse_native(PORT.read_text()).funcs.get(fn)
+    assert entry is not None and "argtypes" in entry, f"{fn} is not declared"
+    ret, cargs, _ = hm.funcs[fn]
+    assert abi._compatible(ret, entry["restype"], set())
+    assert len(entry["argtypes"]) == len(cargs) and all(
+        abi._compatible(c, a, set()) for c, a in zip(cargs, entry["argtypes"]))

@@ -51,6 +51,16 @@ SHAPES = [  # B, T, H, Hkv, D, causal
     # shape of chip_smoke.py's phase 7; and a ragged G = 3 walk
     (2, 2048, 12, 4, 128, True),
     (1, 200, 6, 2, 128, False),
+    # head dims 16 and 32 (the `nano` and `tiny` presets), which run the
+    # Dh 64 kernels at a padded width: the presets' shapes, ragged walks and
+    # the tiles' edges
+    (8, 64, 4, 4, 16, True),
+    (8, 64, 4, 2, 32, True),
+    (2, 100, 4, 2, 16, False),
+    (2, 200, 4, 4, 32, False),
+    (1, 1, 2, 2, 16, True),
+    (1, 129, 4, 1, 32, True),
+    (1, 65, 2, 2, 16, False),
 ]
 
 
@@ -110,7 +120,7 @@ def test_kernels_match_plain(cuda, B, T, H, Hkv, D, causal):
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(1, 64, 2, 32, device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros(1, 64, 2, 48, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(x, x, x)
     y = torch.zeros(1, 64, 2, 64, device=cuda)
@@ -122,7 +132,7 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd(shifted, shifted, shifted)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_kernels_are_deterministic(cuda, D):
     """No atomics: two calls on the same inputs agree bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(1)
