@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero:
    pipeline stages (one GPT-2 sequence), phase 18a's Llama-700m peer
    of 2 tp ranks (6 q heads over 2 kv heads, `tp2_llama`), and phase
    19's head dims 16 and 32 (`nano`, `tiny_gqa` and two ragged
-   non-causal walks), which run the Dh 64 kernels at a padded width;
+   non-causal walks), which run the Dh 64 kernels at a padded width, and
+   phase 21's bench shapes (`bench_gpt`: gpt2-medium, B=16, T=1024, 16
+   heads; `bench_llama`: Llama-700m, B=8, T=2048; `long_gpt` and
+   `long_llama`: batch 1 at T=8192; `long32k`: Llama-700m at T=32768,
+   whose plain versions run 2048 query rows at a time);
    with CUDA-event times (`cuda_ms`) of the kernel, the plain version,
    F.scaled_dot_product_attention (a yardstick; the port never calls it) and
    the least time the card could take; and the backward's total, K2 + K3,
@@ -49,7 +53,7 @@ Phases, in order; any failure exits non-zero:
 6. main path, DDP with shared-state sync hashed by H1: a master and two
    `train_ddp` peers (GPT-2 124M, B=8, T=1024, PCCLT_SS_HASH=simple-tpu;
    the first stages its gradients through registered shm, --shm-staging,
-   the others through pinned buffers; 48 steps), and a third that starts
+   the others through pinned buffers; 32 steps), and a third that starts
    once the first has logged step 2 and adopts the
    cohort's parameters and AdamW state. Syncs move no bytes before it
    comes and after it adopted; it receives every entry's bytes; the three
@@ -118,13 +122,13 @@ Phases, in order; any failure exits non-zero:
 13. sequence parallelism: four rank processes on the card in one gloo
    world (`python -m chip_smoke --sp-rank R --sp-port P`, started
    through the relay), each on its block of a GPT-2 124M batch (B=2,
-   global T=4096, sp=4, so K1-K3 at [2, 1024, 12, 64]): 3 steps of
+   global T=4096, sp=4, so K1-K3 at [2, 1024, 12, 64]): 2 steps of
    train.build_train_step(mesh, seq_axis="sp") with ring attention. Rank
    0 first runs the full T=4096 step with flash_attention alone; step 0's
    loss must agree with it within 1e-3 nats and the averaged gradient
    have cosine >= 0.9998 (phase 4's limits). After every step H1's
    digests of the parameters must be equal on all ranks, and the hops
-   must have sent 2 (n-1) L K/V pairs a rank; K1-K3 must launch 3 x 12 x 4
+   must have sent 2 (n-1) L K/V pairs a rank; K1-K3 must launch 2 x 12 x 4
    times on every rank. Then Llama-700m widths at 2 layers (G=3, Dh 128)
    on a 2 x 2 (dp, sp) mesh, one loss-and-grad against its full-sequence
    reference with the same limits, and quantized_pmean (bitwise equal on
@@ -148,7 +152,7 @@ Phases, in order; any failure exits non-zero:
    row-parallel partial rounded to bf16 before the sum (the fault the
    port's fp32 sum avoids) and must read above the limit. Then the
    steps: the losses and the H1 digests of the replicated gains must be
-   equal on all ranks after every step; K1-K3 launch 3 x 24 times a rank.
+   equal on all ranks after every step; K1-K3 launch 2 x 24 times a rank.
    Then GPT-2 widths at 2 layers on a (2, 2) (dp, tp) mesh, B=4, T=1024,
    with the tied vocab-parallel head, one loss-and-grad under phase 4's
    limits against the unsharded bf16 one (loss gap <= 1e-3, cosine >=
@@ -184,8 +188,8 @@ Phases, in order; any failure exits non-zero:
    a master; the 2-rank peer's loss at each outer step after the first
    (the steps that start from a scatter) must be within MESH_LOSS_GAP of
    the 1-rank peer's; 18b, async
-   DiLoCo on GPT-2 124M (B=8, T=1024, 4 inner and 3 outer steps), two
-   peers of 2 ranks; 18c, phase 11's grid at 4 outer steps with one cell
+   DiLoCo on GPT-2 124M (B=8, T=1024, 4 inner and 2 outer steps), two
+   peers of 2 ranks; 18c, phase 11's grid at 2 outer steps with one cell
    of each group at 2 ranks. Each peer of 2 ranks must log both ranks on
    the card; every rank of every peer must launch K1-K3 at every outer
    step; digests must be equal across the peers at every outer step (and
@@ -206,7 +210,26 @@ Phases, in order; any failure exits non-zero:
    kill; each peer's 4 MiB state a `TensorInfo.from_torch_device` entry
    hashed by H1 on every sync. It must print SOAK PASSED with a relaunch
    or more and a SYNC SUMMARY with no wrong adoption, no failed sync and
-   H1 launches (log `soak.log`).
+   H1 launches (log `soak.log`);
+21. the port's benchmarks, each part in a process of its own printing one
+   JSON line (logs `bench_*.log`): `python -m
+   pccl_tpu_torch.benchmarks.model_bench gpt` and `llama` at their default
+   shapes (gpt2-medium B=16 T=1024, Llama-700m B=8 T=2048, no remat), 3
+   windows of 4 steps: K1-K3 launched n_layer times a step each, the
+   loss falling on the repeated batch, 0 < MFU <= 1.05; Llama-700m at
+   T=32768, batch 1, remat and loss_chunk 2048 (bench.py's longest leg), 2
+   windows of 2 steps: finite losses, K1 2 n_layer and K2, K3 n_layer
+   launches a step (its kernels held at that shape in phase 3,
+   `long32k`); `hash_bench` (H1's digest equal to the staging digest at
+   16 and 64 MB, H1 launched); and native_bench's DiLoCo legs with the
+   outer state on the card (`python -m chip_smoke --bench-part NAME`):
+   the outer step at 100M fp32 elements over two peers (equal digests,
+   every element at the synthetic step's closed form), the 100
+   Mbit/s-paced sync leg at 1 and 4 windows and the async leg beside its
+   sync twin (a 1 s matmul burn), whose times and phases are logged. The
+   T=32768 leg, hash_bench and the three DiLoCo parts run at once, after
+   the two model_bench legs, which run alone. Phases 9 and 10 run at
+   once, and so do phases 19 and 20.
 
 Every peer's FINAL line reports its own peak host RSS: each is started
 through a relay that forks it (utils/rss.relay_argv): a user-space kernel
@@ -288,9 +311,27 @@ SHAPES = [
     ("tiny_gqa", dict(B=8, T=64, H=4, Hkv=2, D=32, causal=True)),
     ("ragged16", dict(B=2, T=100, H=4, Hkv=2, D=16, causal=False)),
     ("ragged32", dict(B=2, T=200, H=4, Hkv=4, D=32, causal=False)),
+    # phase 21's bench shapes: gpt2-medium and Llama-700m at model_bench's
+    # default batches, the long-context legs at T=8192, and Llama-700m at
+    # T=32768, phase 21's longest leg, whose plain versions run 2048 query
+    # rows at a time (the whole [B, H, T, T] fp32 scores, 51 GB, would not
+    # fit beside their intermediates)
+    ("bench_gpt", dict(B=16, T=1024, H=16, Hkv=16, D=64, causal=True)),
+    ("bench_llama", dict(B=8, T=2048, H=12, Hkv=4, D=128, causal=True)),
+    ("long_gpt", dict(B=1, T=8192, H=16, Hkv=16, D=64, causal=True)),
+    ("long_llama", dict(B=1, T=8192, H=12, Hkv=4, D=128, causal=True)),
+    ("long32k", dict(B=1, T=32768, H=12, Hkv=4, D=128, causal=True, q_block=2048)),
 ]
 # the shapes whose outputs must also fail the check with one tile skipped
-CONTROL_SHAPES = ("main", "nano", "tiny_gqa")
+CONTROL_SHAPES = ("main", "nano", "tiny_gqa", "long_gpt", "long_llama", "long32k")
+# Shapes whose dq, dk and dv are held to TOL against the plain versions
+# with p and ds rounded to bf16 where the kernels round them (bf16_p), and
+# to TOL's relative L2 against the fp32 ones. A causal dk or dv row sums
+# the rows that see it, so at T=8192 the first rows are tens of times the
+# tensor's rms, and the bf16 rounding of p, which the kernels share with
+# the TPU kernels, gives an error there that grows past 0.15 rms (long_gpt's
+# dv read 0.153 against the fp32 versions on an H100; PERF.md, section 6).
+BF16_P_SHAPES = ("long_gpt", "long_llama", "long32k")
 WITH_LSE_SHAPES = ("sp", "sp_causal", "sp_gqa")
 
 # Each output is held two ways, so that neither its largest elements nor its
@@ -311,9 +352,10 @@ TOL = {  # name: (rel, atol, rtol)
 HOST_LEAD_CYCLES = 10_000_000
 
 MAIN = dict(model="gpt2", block=1024, batch=8, inner_steps=4, outer_steps=2)
-# 48 steps: the late joiner adopts near step 14 and must train 10 or more
-# with the others (80 until the smoke grew phase 18)
-DDP = dict(model="gpt2", block=1024, batch=8, steps=48)
+# 32 steps: the late joiner adopts near steps 14-16 and must train 10 or
+# more with the others (80 until the smoke grew phase 18, 48 until it grew
+# phase 21)
+DDP = dict(model="gpt2", block=1024, batch=8, steps=32)
 # 4 inner steps (once 8, cut to make room for phases 19 and 20): the
 # checks are digests and launches at every outer step, which 4 hold as
 # well as 8
@@ -529,7 +571,8 @@ def fmt_err(name: str, e: dict) -> str:
             f"atol {e['atol']:.3e} (tol {atol_tol:g})")
 
 
-def check_the_check(qf, kf, vf, dof, lse, delta, causal, refs) -> None:
+def check_the_check(qf, kf, vf, dof, lse, delta, causal, refs,
+                    q_block=None) -> None:
     """The check must reject what a kernel that skips one 64-wide tile of
     its loop would give: out and dq without one k tile's v (its P.V and
     dO.V^T shares), dk and dv without one q tile's share. The tile sits at
@@ -543,10 +586,11 @@ def check_the_check(qf, kf, vf, dof, lse, delta, causal, refs) -> None:
     v_cut[:, t0:t0 + 64] = 0
     do_cut[:, t0:t0 + 64] = 0
     delta_cut[..., t0:t0 + 64] = 0
-    bad = {"out": fa.flash_fwd_plain(qf, kf, v_cut, causal)[0],
-           "dq": fa.flash_bwd_dq_plain(qf, kf, v_cut, dof, lse, delta, causal)}
+    bad = {"out": fa.flash_fwd_plain(qf, kf, v_cut, causal, q_block=q_block)[0],
+           "dq": fa.flash_bwd_dq_plain(qf, kf, v_cut, dof, lse, delta, causal,
+                                       q_block=q_block)}
     bad["dk"], bad["dv"] = fa.flash_bwd_dkv_plain(qf, kf, vf, do_cut, lse,
-                                                  delta_cut, causal)
+                                                  delta_cut, causal, q_block=q_block)
     for name, x in bad.items():
         e = compare(name, x.bfloat16(), refs[name])
         log(f"  control, one tile skipped: {fmt_err(name, e)}")
@@ -564,6 +608,7 @@ def phase_kernels() -> dict:
     results = {}
     for tag, s in SHAPES:
         B, T, H, Hkv, D, causal = (s[k] for k in ("B", "T", "H", "Hkv", "D", "causal"))
+        qb = s.get("q_block")
         gen = torch.Generator(device=dev).manual_seed(1234)
 
         def rnd(heads):
@@ -574,35 +619,56 @@ def phase_kernels() -> dict:
         qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
 
         out, lse = fa.flash_fwd(q, k, v, causal)
-        ref_out, ref_lse = fa.flash_fwd_plain(qf, kf, vf, causal)
+        ref_out, ref_lse = fa.flash_fwd_plain(qf, kf, vf, causal, q_block=qb)
         # both backward versions get the same lse and delta
         delta = (dof * ref_out).sum(-1).transpose(1, 2).contiguous()
         dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal)
-        ref_dq = fa.flash_bwd_dq_plain(qf, kf, vf, dof, ref_lse, delta, causal)
-        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(qf, kf, vf, dof, ref_lse, delta, causal)
+        bf16_p = tag in BF16_P_SHAPES
+        ref_dq = fa.flash_bwd_dq_plain(qf, kf, vf, dof, ref_lse, delta, causal,
+                                       bf16_p, q_block=qb)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(qf, kf, vf, dof, ref_lse, delta,
+                                                causal, bf16_p, q_block=qb)
         torch.cuda.synchronize()
 
         pairs = (("out", out, ref_out), ("lse", lse, ref_lse), ("dq", dq, ref_dq),
                  ("dk", dk, ref_dk), ("dv", dv, ref_dv))
         errs = {name: compare(name, got, ref) for name, got, ref in pairs}
+        notes = []
+        if bf16_p:
+            f32 = {"dq": fa.flash_bwd_dq_plain(qf, kf, vf, dof, ref_lse, delta,
+                                               causal, q_block=qb)}
+            f32["dk"], f32["dv"] = fa.flash_bwd_dkv_plain(qf, kf, vf, dof, ref_lse,
+                                                          delta, causal, q_block=qb)
+            for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+                e = compare(name, got, f32[name])
+                e["ok"] = e["rel"] <= TOL[name][0]
+                notes.append(f"  against the fp32 plain version: {fmt_err(name, e)} "
+                             f"(relative L2 held){'' if e['ok'] else '  FAIL'}")
+                errs[name]["ok"] &= e["ok"]
+            del f32
         if tag in CONTROL_SHAPES:
             check_the_check(qf, kf, vf, dof, ref_lse, delta, causal, dict(
-                (name, ref) for name, _, ref in pairs))
+                (name, ref) for name, _, ref in pairs), q_block=qb)
 
+        # the kernels and SDPA at T=32768 take milliseconds a call, the
+        # plain versions at T=8192 tens of ms, at 32768 hundreds: fewer calls
+        kern = dict(calls=5, pairs=3, warmup=1) if T > 8192 else {}
         ms = {
-            "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal)),
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal), **kern),
             "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, ref_lse,
-                                                            delta, causal)),
+                                                            delta, causal), **kern),
             "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, ref_lse,
-                                                              delta, causal)),
+                                                              delta, causal), **kern),
         }
+        few = dict(calls=1, pairs=3, warmup=1) if T > 4096 else dict(calls=3)
         plain_ms = {
-            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(qf, kf, vf, causal), calls=3),
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(qf, kf, vf, causal,
+                                                            q_block=qb), **few),
             "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_plain(
-                qf, kf, vf, dof, ref_lse, delta, causal), calls=3),
+                qf, kf, vf, dof, ref_lse, delta, causal, q_block=qb), **few),
             "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
-                qf, kf, vf, dof, ref_lse, delta, causal), calls=3),
+                qf, kf, vf, dof, ref_lse, delta, causal, q_block=qb), **few),
         }
         # library yardstick: SDPA forward, and its backward (one call that
         # computes dq, dk and dv together; it stands beside K2 and K3)
@@ -617,14 +683,16 @@ def phase_kernels() -> dict:
         o_s = sdpa()
         do_s = do.transpose(1, 2)
         sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o_s, (qs, ks, vs), do_s,
-                                                       retain_graph=True))
-        library_ms = {"flash_fwd": cuda_ms(sdpa), "flash_bwd_dq": sdpa_bwd,
+                                                       retain_graph=True), **kern)
+        library_ms = {"flash_fwd": cuda_ms(sdpa, **kern), "flash_bwd_dq": sdpa_bwd,
                       "flash_bwd_dkv": sdpa_bwd}
         bnd = bounds(B, T, H, Hkv, D, causal)
         ok = all(e["ok"] for e in errs.values())
         log(f"kernels @ {tag} {s}:")
         for name, e in errs.items():
             log(f"  {fmt_err(name, e)}{'' if e['ok'] else '  FAIL'}")
+        for note in notes:
+            log(note)
         for name in FLASH:
             log(f"  {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
                 f"sdpa {library_ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms "
@@ -887,7 +955,8 @@ def free_ports(n: int, offsets=(0,)) -> list:
                     t = socket.socket()
                     held.append(t)
                     t.bind(("127.0.0.1", base + off))
-            except OSError:
+            # taken, or past 65535 (a kernel may hand out ports up to there)
+            except (OSError, OverflowError):
                 continue
             bases.append(base)
     finally:
@@ -906,21 +975,22 @@ def stop(proc) -> None:
             proc.wait(timeout=15)
 
 
-def start_master(procs: list, files: list, env: dict) -> int:
-    """A master on an OS-chosen port, logging to LOG_DIR/master.log; returns
+def start_master(procs: list, files: list, env: dict,
+                 log_name: str = "master.log") -> int:
+    """A master on an OS-chosen port, logging to LOG_DIR/log_name; returns
     the port once it listens."""
     port, = free_ports(1)
-    files.append(open(LOG_DIR / "master.log", "w"))
+    path = LOG_DIR / log_name
+    files.append(open(path, "w"))
     master = subprocess.Popen(
         [sys.executable, "-m", "pccl_tpu_torch.comm.master", "--listen",
          "127.0.0.1", "--port", str(port)], cwd=REPO, env=env, stdout=files[-1],
         stderr=subprocess.STDOUT)
     procs.append(master)
     deadline = time.time() + 60
-    while "master listening" not in (LOG_DIR / "master.log").read_text():
+    while "master listening" not in path.read_text():
         if master.poll() is not None or time.time() > deadline:
-            raise SmokeError("master did not start: "
-                             + (LOG_DIR / "master.log").read_text())
+            raise SmokeError("master did not start: " + path.read_text())
         time.sleep(0.2)
     return port
 
@@ -957,13 +1027,14 @@ def run_peer_pair(names: list, module: str, args: list, per_rank=None,
                   env_extra=None) -> list:
     """A master and two peers `python -m module --master-port P --base-port
     B --data-shard rank --min-world 2 *args *per_rank(rank)`, logging to
-    LOG_DIR/names[rank]; returns each peer's (exit code, log text) once
-    both have ended. Stops every process it started."""
+    LOG_DIR/names[rank] (the master to master_<names[0]>); returns each peer's
+    (exit code, log text) once both have ended. Stops every process it
+    started."""
     LOG_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONUNBUFFERED="1", **(env_extra or {}))
     procs, files, peers = [], [], []
     try:
-        port = start_master(procs, files, env)
+        port = start_master(procs, files, env, f"master_{names[0]}")
         for rank, base in enumerate(free_ports(2, offsets=(0, 4, 8))):
             peers.append(spawn(procs, files, env, names[rank], [
                 module, "--master-port", str(port), "--base-port", str(base),
@@ -1600,6 +1671,15 @@ def phase_ddp_resume() -> dict:
     return {"launches": totals, "rows": rows, "saves": saves, "restores": restores}
 
 
+def phases_9_10() -> tuple:
+    """Phases 9 and 10 at once (two resumed pairs of GPT-2-width peers, each
+    under its own masters, checkpoints and logs); returns their results."""
+    with ThreadPoolExecutor(2) as ex:
+        resume = ex.submit(timed, "diloco resume", phase_diloco_resume)
+        ddp_resume = ex.submit(timed, "ddp resume", phase_ddp_resume)
+        return resume.result(), ddp_resume.result()
+
+
 # ------------------------------------------------------------------ phase 11
 
 # 12 outer steps: from random init at GPT-2 width AdamW at 1e-3 swings the
@@ -1913,7 +1993,9 @@ def phase_comm(dev: str = "cuda") -> dict:
 
 # GPT-2 124M at 4 sp ranks on the card: each rank runs K1-K3 at [2, 1024,
 # 12, 64]; then Llama-700m widths at 2 layers on a 2 x 2 (dp, sp) mesh
-SP = dict(model="gpt2", batch=2, block=4096, steps=3, ranks=4)
+# 2 steps (3 until phase 21 came): step 0 against the full-sequence step,
+# the digests and the hop bytes after each
+SP = dict(model="gpt2", batch=2, block=4096, steps=2, ranks=4)
 SP_GQA = dict(model="700m", n_layer=2, batch=2, block=4096, mesh=(2, 2))
 SP_TIMEOUT_S = 300
 QRING_BLOCK = 256
@@ -2162,7 +2244,9 @@ def check_sp(res: list) -> dict:
 # ------------------------------------------------------------ phases 14-16
 
 # "over": overrides of the preset's config (its depth only, here)
-TP = dict(model="700m", over={}, batch=2, block=2048, steps=3, mesh=(1, 4))
+# 2 steps (3 until phase 21 came): the losses and the gains' digests after
+# every step; the ratio check reads 3 batches from the initial parameters
+TP = dict(model="700m", over={}, batch=2, block=2048, steps=2, mesh=(1, 4))
 TP_GPT = dict(model="gpt2", over=dict(n_layer=2), batch=4, block=1024, mesh=(2, 2))
 PP = dict(model="gpt2", over={}, batch=8, block=1024, stages=4, microbatches=8,
           runs=2)
@@ -2669,9 +2753,9 @@ def check_moe(res: list) -> None:
 # ------------------------------------------------------------------ phase 17
 
 # 16 steps: from random init at GPT-2 width AdamW moves the loss up and
-# down for the first ~10 steps (6 steps on the card: 10.98 -> 11.10 at lr
-# 1e-3, 10.98 -> 11.01 at 3e-4); by step 15 phase 6's peers are ~0.6 nats
-# below their start
+# down for the first ~10 steps (step 8's, 11.1369, is still above step 0's,
+# 10.9781; step 11's 10.7617), and the example's own descent check needs
+# the last step's below the first's with room to spare
 DDP_TP = dict(model="gpt2", block=1024, batch=8, steps=16, tp=2)
 DDP_TP_LINE = re.compile(
     r"^step (\d+) loss (\S+) world (\d+) revision \d+ tok_s (\S+) ring_s (\S+) "
@@ -2744,9 +2828,12 @@ def phase_ddp_tp() -> dict:
 # peers that read the same batches (same_data: both on data shard 0)
 MESH_SYNC = dict(family="llama", model="700m", block=2048, batch=2, inner_steps=2,
                  outer_steps=2, ranks=(2, 1), same_data=True)
+# 18b and 18c at 2 outer steps (3 and 4 until phase 21 came): the second
+# holds every check the later ones did (the async reduce of step 0 lands
+# in it; its grid sync is the first that must move 0 bytes)
 MESH_ASYNC = dict(family="gpt", model="gpt2", block=1024, batch=8, inner_steps=4,
-                  outer_steps=3, ranks=(2, 2))
-MESH_GRID = dict(GRID, outer_steps=4, ranks=[2, 1], descent=False)
+                  outer_steps=2, ranks=(2, 2))
+MESH_GRID = dict(GRID, outer_steps=2, ranks=[2, 1], descent=False)
 # The digests cannot tell a sound 2-rank peer from one whose scatter writes
 # the wrong blocks or whose tp step computes another function: every peer
 # adds one averaged pseudo-gradient to one outer vector. On the same
@@ -3006,6 +3093,160 @@ def phase_soak() -> dict:
             "relaunches": relaunches, "summary": fields}
 
 
+def phases_19_20() -> tuple:
+    """Phases 19 and 20 at once (the examples are two small solo processes
+    beside the soak); returns their results."""
+    with ThreadPoolExecutor(2) as ex:
+        examples = ex.submit(timed, "examples", phase_examples)
+        soak = ex.submit(timed, "soak", phase_soak)
+        return examples.result(), soak.result()
+
+
+# ------------------------------------------------------------------ phase 21
+
+# model_bench at its defaults (DEFAULT_SHAPES: gpt2-medium and Llama-700m,
+# no remat) for 3 windows of 4 steps (5 of 8 when run alone), and bench.py's
+# longest leg: Llama-700m at T=32768, batch 1, remat, the chunked CE
+BENCH_MODEL = dict(windows=3, steps_per_window=4)
+BENCH_LONG = dict(seq=32768, batch=1, remat=1, loss_chunk=2048, windows=2,
+                  steps_per_window=2)
+BENCH_MFU_MAX = 1.05
+BENCH_TIMEOUT_S = 300
+# a native_bench peer at `rank` listens at base + 4 rank, + 1000 and + 2000
+BENCH_OFFSETS = (0, 4, 1000, 1004, 2000, 2004)
+
+
+def bench_part(name: str) -> None:
+    """One DiLoCo part of phase 21 in a process of its own (`python -m
+    chip_smoke --bench-part NAME`, ports chosen here): prints its result
+    as one JSON line."""
+    from pccl_tpu_torch.comm import native_bench as nb
+
+    if name == "diloco_outer":
+        mport, = free_ports(1)
+        base, = free_ports(1, offsets=BENCH_OFFSETS)
+        med, phases, ranks = nb.run_diloco_outer_bench(
+            params_n=100_000_000, master_port=mport, base=base, details=True)
+        out = {"outer_step_s": med, "phases": phases, "ranks": ranks,
+               "closed_form": nb.diloco_closed_form(2, ranks[0]["steps"])}
+    elif name == "diloco_cuda":
+        out = nb.run_diloco_cuda_bench(
+            iters=2, mports=tuple(free_ports(2)),
+            bases=tuple(free_ports(2, offsets=BENCH_OFFSETS)))
+    elif name == "async_diloco_cuda":
+        out = nb.run_async_diloco_cuda_bench(
+            iters=2, inner_s=1.0, mports=tuple(free_ports(2)),
+            bases=tuple(free_ports(2, offsets=BENCH_OFFSETS)))
+    else:
+        raise SmokeError(f"unknown bench part {name!r}")
+    print(json.dumps(out), flush=True)
+
+
+def run_json(tag: str, cmd: list) -> dict:
+    """`python -m *cmd` through the relay (its peers' RSS stays their own),
+    in a process of its own; its last stdout line, logged as JSON under
+    `tag`. Its output lands in LOG_DIR/bench_<tag>.log."""
+    from pccl_tpu_torch.utils.rss import relay_argv
+
+    LOG_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(relay_argv([sys.executable, "-m", *cmd]), cwd=REPO,
+                           env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                           capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"21 {tag}: ran past {BENCH_TIMEOUT_S} s") from None
+    (LOG_DIR / f"bench_{tag}.log").write_text(r.stdout + r.stderr)
+    if r.returncode != 0:
+        dump_logs([f"bench_{tag}.log"])
+        raise SmokeError(f"21 {tag}: {' '.join(cmd)} exited {r.returncode}")
+    line = r.stdout.strip().splitlines()[-1]
+    log(f"21 {tag} ({time.perf_counter() - t0:.1f} s): {line}")
+    return json.loads(line)
+
+
+def _model_checks(tag: str, res: dict, layers: int, steps: int, remat: bool) -> None:
+    """K1-K3 launched as the remat mode gives (phase 8's counts: K1 L a step
+    without remat, 2L with; K2 and K3 L), finite losses."""
+    want = {"flash_fwd": (2 if remat else 1) * layers * steps,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+    if res["launches"] != want:
+        raise SmokeError(f"21 {tag}: launches {res['launches']}, not {want}")
+    if not all(math.isfinite(res[k]) for k in ("loss_first", "loss_last")):
+        raise SmokeError(f"21 {tag}: losses {res['loss_first']}, {res['loss_last']}")
+
+
+def phase_bench() -> dict:
+    """The port's bench modules on the card, each part in a process of its
+    own: model_bench for each family at its defaults (K1-K3 at every layer
+    of every step, a falling loss on the repeated batch, 0 < MFU <= 1.05),
+    model_bench at Llama-700m T=32768 under remat with the chunked CE
+    (finite losses), hash_bench (H1 digests equal to the staging digests,
+    as it asserts), and native_bench's DiLoCo legs with their outer state
+    on the card: the outer step at 100M elements (digests equal, values at
+    the synthetic step's closed form), the paced sync leg at 1 and 4
+    windows and the async leg beside its sync twin; the T=32768 leg,
+    hash_bench and these three at once. Returns the launch totals."""
+    from pccl_tpu_torch.benchmarks import model_bench
+    from pccl_tpu_torch.models import gpt, llama
+
+    totals = {name: 0 for name in FLASH}
+    steps = BENCH_MODEL["windows"] * BENCH_MODEL["steps_per_window"]
+    for fam, mod in (("gpt", gpt), ("llama", llama)):
+        shape = model_bench.DEFAULT_SHAPES[fam]
+        res = run_json(fam, ["pccl_tpu_torch.benchmarks.model_bench", fam,
+                             *(f"{k}={v}" for k, v in BENCH_MODEL.items())])
+        _model_checks(fam, res, mod.named_config(shape["preset"]).n_layer, steps,
+                      remat=False)
+        if not res["loss_last"] < res["loss_first"]:
+            raise SmokeError(f"21 {fam}: the loss did not fall on the repeated "
+                             f"batch: {res['loss_first']} -> {res['loss_last']}")
+        if not 0 < res["mfu"] <= BENCH_MFU_MAX:
+            raise SmokeError(f"21 {fam}: MFU {res['mfu']}")
+        log(f"21 {fam}: {res['config']}: {res['tokens_s']:.1f} tok/s "
+            f"({res['tokens_s_min']:.1f}-{res['tokens_s_max']:.1f}), step "
+            f"{res['step_s']:.4f} s, MFU {res['mfu']:.4f}, peak "
+            f"{res['peak_mib']:.0f} MiB, loss {res['loss_first']:.3f} -> "
+            f"{res['loss_last']:.3f}")
+        for k in FLASH:
+            totals[k] += res["launches"][k]
+
+    # the T=32768 leg, hash_bench and the DiLoCo parts at once (each DiLoCo
+    # part on its own master and ports): their times are logged, not held,
+    # since they share the card and the host; the bench runs them one by one
+    with ThreadPoolExecutor(5) as ex:
+        parts = [ex.submit(run_json, "llama32k", [
+            "pccl_tpu_torch.benchmarks.model_bench", "llama",
+            *(f"{k}={v}" for k, v in BENCH_LONG.items())])]
+        parts.append(ex.submit(run_json, "hash",
+                               ["pccl_tpu_torch.benchmarks.hash_bench"]))
+        parts += [ex.submit(run_json, part, ["chip_smoke", "--bench-part", part])
+                  for part in ("diloco_outer", "diloco_cuda", "async_diloco_cuda")]
+        long, hashed, res = [f.result() for f in parts][:3]
+    _model_checks("llama32k", long, llama.named_config("700m").n_layer,
+                  BENCH_LONG["windows"] * BENCH_LONG["steps_per_window"], remat=True)
+    log(f"21 llama32k: {long['config']}: {long['tokens_s']:.1f} tok/s, MFU "
+        f"{long['mfu']:.4f}, peak {long['peak_mib']:.0f} MiB, loss "
+        f"{long['loss_first']:.3f} -> {long['loss_last']:.3f}")
+    for k in FLASH:
+        totals[k] += long["launches"][k]
+    if hashed["h1_launches"] < 1:
+        raise SmokeError(f"21 hash: H1 not launched: {hashed}")
+    totals["simplehash_tpu"] = hashed["h1_launches"]
+    want = res["closed_form"]
+    for r in res["ranks"]:
+        if r["platform"] != "cuda" or not (r["w_min"] == r["w_max"] == r["first"]) \
+                or abs(r["first"] - want) > 1e-5 * abs(want):
+            raise SmokeError(f"21 diloco_outer: rank {r['rank']} on {r['platform']} "
+                             f"holds [{r['w_min']}, {r['w_max']}], closed form {want}")
+    log(f"21 diloco_outer: 100M fp32, outer step {res['outer_step_s']:.4f} s, "
+        f"digests equal ({res['ranks'][0]['digest']}), every element "
+        f"{res['ranks'][0]['first']} (closed form {want:.7f}); peer RSS "
+        f"{[r['peak_rss_mib'] for r in res['ranks']]} MiB")
+    log(f"21: launches {totals}")
+    return {"launches": totals}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3044,11 +3285,9 @@ def main() -> int:
     # phase 8 runs in this process: its counts start at 0 here
     fa.reset_launch_counts()
     remat = timed("remat", phase_remat)
-    fa.reset_launch_counts()
-    resume = timed("diloco resume", phase_diloco_resume)
-    fa.reset_launch_counts()
-    hashing.reset_launch_counts()
-    ddp_resume = timed("ddp resume", phase_ddp_resume)
+    # phases 9 and 10 run in peer processes of their own, whose counts
+    # start at 0, at once
+    resume, ddp_resume = phases_9_10()
     fa.reset_launch_counts()
     grid = timed("grid", phase_grid)
     # phase 12 runs in this process and sets H1's count to 0 itself just
@@ -3067,10 +3306,11 @@ def main() -> int:
     # counts start at 0
     mesh = timed("diloco mesh", phase_mesh)
     # phases 19 and 20 run in processes of their own, whose counts start at 0
-    examples = timed("examples", phase_examples)
-    soak = timed("soak", phase_soak)
+    examples, soak = phases_19_20()
+    # phase 21's parts run in processes of their own, whose counts start at 0
+    bench = timed("bench", phase_bench)
     paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp,
-             tp, pp, ddp_tp, mesh, examples, soak)
+             tp, pp, ddp_tp, mesh, examples, soak, bench)
 
     m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
@@ -3103,6 +3343,11 @@ def main() -> int:
             # and at phase 19's examples' defaults (Dh 16 and 32, padded)
             row["nano"] = at(kres["nano"])
             row["tiny_gqa"] = at(kres["tiny_gqa"])
+            # and at phase 21's bench shapes: model_bench's batches, and the
+            # long-context legs at T=8192 and 32768
+            for tag in ("bench_gpt", "bench_llama", "long_gpt", "long_llama",
+                        "long32k"):
+                row[tag] = at(kres[tag])
             # through flash_attention_with_lse with an lse cotangent (3a)
             row["with_lse_max_abs_err"] = max(
                 e[o]["max_abs"] for e in lres.values() for o in out_names[name])
@@ -3124,6 +3369,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--bench-part" in sys.argv:
+        # one of phase 21's DiLoCo parts
+        bench_part(sys.argv[sys.argv.index("--bench-part") + 1])
+        sys.exit(0)
     if "--sp-rank" in sys.argv or "--par-rank" in sys.argv:
         # one of phase 13's ranks, or of phases 14-16's
         import argparse

@@ -53,45 +53,70 @@ def _expand_kv(x: torch.Tensor, H: int) -> torch.Tensor:
     return x if Hkv == H else x.repeat_interleave(H // Hkv, dim=2)
 
 
-def _visible(T: int, causal: bool, device) -> torch.Tensor | None:
-    if not causal:
-        return None
-    i = torch.arange(T, device=device)
-    return i[None, :] <= i[:, None]                   # [Tq, Tk]
-
-
-def _scores(q, k, causal: bool) -> torch.Tensor:
-    """Masked scaled scores in fp32, [B, H, Tq, Tk]."""
+def _scores(q, k, causal: bool, q0: int = 0) -> torch.Tensor:
+    """Masked scaled scores in fp32, [B, H, Tq, Tk], for the queries at
+    sequence rows q0..q0+Tq against keys 0..Tk."""
     H, Dh = q.shape[2], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, H).float())
     s = s * (1.0 / math.sqrt(Dh))
-    vis = _visible(q.shape[1], causal, q.device)
-    return s if vis is None else s.masked_fill(~vis, MASK)
+    if not causal:
+        return s
+    i = torch.arange(q0, q0 + q.shape[1], device=q.device)
+    j = torch.arange(k.shape[1], device=q.device)
+    return s.masked_fill(j[None, :] > i[:, None], MASK)
 
 
-def flash_fwd_plain(q, k, v, causal: bool = True):
-    """Plain version of K1, in fp32: (out in q's dtype, lse [B, H, T] fp32)."""
-    s = _scores(q, k, causal)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand_kv(v, q.shape[2]).float())
-    return out.to(q.dtype), lse
+def _query_blocks(T: int, Tk: int, causal: bool, q_block: int | None):
+    """(q0, q1, k1) for each block of q_block query rows (all T rows when
+    None) and the keys 0..k1 it can see: with the causal mask the block
+    sees none past its last row, so its scores are [B, H, q1 - q0, k1]
+    and the full [B, H, T, T] is never held."""
+    step = q_block or T
+    for q0 in range(0, T, step):
+        q1 = min(q0 + step, T)
+        yield q0, q1, (q1 if causal else Tk)
 
 
-def _p_ds(q, k, v, do, lse, delta, causal: bool):
-    """p and ds = p * (do.v^T - delta) * scale, fp32 [B, H, Tq, Tk]."""
+def flash_fwd_plain(q, k, v, causal: bool = True, q_block: int | None = None):
+    """Plain version of K1, in fp32: (out in q's dtype, lse [B, H, T] fp32);
+    q_block rows of scores at a time where given."""
+    H, outs, lses = q.shape[2], [], []
+    for q0, q1, k1 in _query_blocks(q.shape[1], k.shape[1], causal, q_block):
+        s = _scores(q[:, q0:q1], k[:, :k1], causal, q0)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        del s
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p,
+                                 _expand_kv(v[:, :k1], H).float()).to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _p_ds(q, k, v, do, lse, delta, causal: bool, bf16_p: bool = False, q0: int = 0):
+    """p and ds = p * (do.v^T - delta) * scale, fp32 [B, H, Tq, Tk], for
+    the queries at sequence rows q0..; with bf16_p each rounded to bf16,
+    as K2 and K3 (and the TPU kernels) round them before the second
+    products."""
     H, Dh = q.shape[2], q.shape[3]
-    p = torch.exp(_scores(q, k, causal) - lse[..., None].float())
+    p = torch.exp(_scores(q, k, causal, q0) - lse[..., None].float())
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), _expand_kv(v, H).float())
     ds = p * (dp - delta[..., None].float()) * (1.0 / math.sqrt(Dh))
+    if bf16_p:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
     return p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain version of K2, in fp32: dq in q's dtype."""
-    _, ds = _p_ds(q, k, v, do, lse, delta, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand_kv(k, q.shape[2]).float())
-    return dq.to(q.dtype)
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                       bf16_p: bool = False, q_block: int | None = None):
+    """Plain version of K2, in fp32 (ds rounded to bf16 with bf16_p): dq in
+    q's dtype; q_block rows of scores at a time where given."""
+    H, parts = q.shape[2], []
+    for q0, q1, k1 in _query_blocks(q.shape[1], k.shape[1], causal, q_block):
+        _, ds = _p_ds(q[:, q0:q1], k[:, :k1], v[:, :k1], do[:, q0:q1],
+                      lse[..., q0:q1], delta[..., q0:q1], causal, bf16_p, q0)
+        parts.append(torch.einsum("bhqk,bkhd->bqhd", ds,
+                                  _expand_kv(k[:, :k1], H).float()).to(q.dtype))
+    return torch.cat(parts, dim=1)
 
 
 def _fold_groups(x: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -101,12 +126,20 @@ def _fold_groups(x: torch.Tensor, Hkv: int) -> torch.Tensor:
     return x.reshape(B, T, Hkv, H // Hkv, Dh).sum(dim=3)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain version of K3, in fp32: (dk, dv) in k's dtype, [B, T, Hkv, Dh]."""
-    Hkv = k.shape[2]
-    p, ds = _p_ds(q, k, v, do, lse, delta, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                        bf16_p: bool = False, q_block: int | None = None):
+    """Plain version of K3, in fp32 (p and ds rounded to bf16 with bf16_p):
+    (dk, dv) in k's dtype, [B, T, Hkv, Dh]; q_block rows of scores at a
+    time where given, each block's share summed into fp32 dk and dv."""
+    B, Tk, Hkv, Dh = k.shape
+    dk = torch.zeros((B, Tk, q.shape[2], Dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0, q1, k1 in _query_blocks(q.shape[1], Tk, causal, q_block):
+        p, ds = _p_ds(q[:, q0:q1], k[:, :k1], v[:, :k1], do[:, q0:q1],
+                      lse[..., q0:q1], delta[..., q0:q1], causal, bf16_p, q0)
+        dv[:, :k1] += torch.einsum("bhqk,bqhd->bkhd", p, do[:, q0:q1].float())
+        dk[:, :k1] += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, q0:q1].float())
+        del p, ds
     return _fold_groups(dk, Hkv).to(k.dtype), _fold_groups(dv, Hkv).to(v.dtype)
 
 

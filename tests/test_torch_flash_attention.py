@@ -199,3 +199,70 @@ def test_alignment_check():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._check_aligned(shifted)
     tfa._check_aligned(torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("causal,hkv", CASES)
+def test_bf16_p_plain_matches_pallas_in_bf16(causal, hkv):
+    """With bf16 inputs the Pallas backward rounds p and ds to bf16 before
+    the second products; the plain versions with bf16_p=True round them
+    alike, so dq, dk and dv agree within a bf16 ulp or two of the outputs
+    (the phase 3 reference at T=8192 and 32768 on the card), and the fp32
+    plain versions do not."""
+    q, k, v, do, _ = _inputs(hkv)
+    B, T, H, Dh = q.shape
+    bf = [x.astype(jnp.bfloat16) for x in (q, k, v, do)]
+
+    def bhtd(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(-1, T, Dh)
+
+    def bthd(x, heads):
+        return np.asarray(x.astype(jnp.float32)).reshape(B, heads, T, Dh) \
+            .transpose(0, 2, 1, 3)
+
+    o, lse = jfa._flash_bhtd(*map(bhtd, bf[:3]), block_q=32, block_k=32,
+                             causal=causal, interpret=True)
+    j_dq, j_dk, j_dv = jfa._flash_bwd_bhtd(
+        *map(bhtd, bf[:3]), o, bhtd(bf[3]), lse, block_q=32, block_k=32,
+        causal=causal, interpret=True, n_kv_head=hkv)
+    delta = (np.asarray(o.astype(jnp.float32)) *
+             np.asarray(bhtd(bf[3]).astype(jnp.float32))).sum(-1).reshape(B, H, T)
+    lse_t = torch.from_numpy(np.asarray(lse).reshape(B, H, T).copy())
+    delta_t = torch.from_numpy(delta.astype(np.float32))
+    qt, kt, vt, dot = (torch.from_numpy(np.asarray(x.astype(jnp.float32)))
+                       .bfloat16() for x in bf)
+    got = {}
+    for bf16_p in (True, False):
+        dq = tfa.flash_bwd_dq_plain(qt, kt, vt, dot, lse_t, delta_t, causal,
+                                    bf16_p=bf16_p)
+        dk, dv = tfa.flash_bwd_dkv_plain(qt, kt, vt, dot, lse_t, delta_t, causal,
+                                         bf16_p=bf16_p)
+        got[bf16_p] = [x.float().numpy() for x in (dq, dk, dv)]
+    wants = [bthd(j_dq, H), bthd(j_dk, hkv), bthd(j_dv, hkv)]
+    for rounded, fp32, want in zip(got[True], got[False], wants):
+        np.testing.assert_allclose(rounded, want, rtol=2 ** -7, atol=1e-5)
+        # the rounding is what brings the plain version to the kernel: the
+        # fp32 plain version lies 50 times further from it or more (relative
+        # L2 2.4e-3 to 2.8e-3 against at most 1.3e-5 in these cases)
+        assert 50 * np.linalg.norm(rounded - want) < np.linalg.norm(fp32 - want)
+
+
+@pytest.mark.parametrize("causal,hkv", CASES)
+@pytest.mark.parametrize("q_block", [64, 96])
+def test_plain_versions_by_query_blocks_match_whole(causal, hkv, q_block):
+    """The plain versions computed q_block query rows at a time (the card's
+    reference at T=32768, where the whole [B, H, T, T] scores would not
+    fit) give what the whole computation gives, a ragged last block
+    included (T=200)."""
+    q, k, v, w_out, _ = _inputs(hkv, B=2, T=200)
+    qt, kt, vt, dot = _t(q, k, v, w_out)
+    for bf16_p in (False, True):
+        whole, blocks = [], []
+        for qb, acc in ((None, whole), (q_block, blocks)):
+            out, lse_b = tfa.flash_fwd_plain(qt, kt, vt, causal, q_block=qb)
+            delta = (dot * out).sum(-1).transpose(1, 2).contiguous()
+            acc += [out, lse_b, tfa.flash_bwd_dq_plain(
+                qt, kt, vt, dot, lse_b, delta, causal, bf16_p, q_block=qb),
+                *tfa.flash_bwd_dkv_plain(qt, kt, vt, dot, lse_b, delta, causal,
+                                         bf16_p, q_block=qb)]
+        for a, b in zip(whole, blocks):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-5)
