@@ -70,10 +70,12 @@ Phases, in order; any failure exits non-zero:
    this process, each a Diloco over one fp32 vector of 702,359,040 elements
    on the card (outer lr 1, no momentum, inner = outer - (rank + 1)): the
    pipelined windowed reduce through registered shm (4 windows), then the
-   staged and the unstaged ring, two outer steps each. The results must be
-   exactly -1.5 and -3 everywhere and bit-identical on both peers; logs
-   each step's profile (D2H, stage copy, ring, H2D and apply): the first
-   step pays each buffer's allocation and first touch, the second is warm;
+   staged and the unstaged ring, two outer steps each, each peer on its
+   own stream. The results must be exactly -1.5 and -3 everywhere and
+   bit-identical on both peers; logs each step's profile (D2H, stage copy,
+   ring, H2D and apply; the card's time of that peer's work, which shares
+   the card with the other's): the first step pays each buffer's
+   allocation and first touch, the second is warm;
 8. accumulation and remat at Llama-700m (L=24, T=2048), in this process:
    on the same weights and 4 sequences, train.build_loss_and_grad with
    remat False, True, "dots" and "sqrt" at A=1, B=4, then A=2, B=2 at
@@ -92,9 +94,10 @@ Phases, in order; any failure exits non-zero:
    outer step, --profile and --trace-out): 2 outer steps, then the peers
    and the master stop and a fresh master and both peers run to 3. Each must print `resumed from
    outer step 2` with the digest outer step 1 printed, the peers' digests
-   must agree at every step, each trace must hold one process_name event
-   and one event per section entered, and the table must list `inner` and
-   `outer/ring+sgd`;
+   must agree at every step, each trace must hold its two metadata events
+   and one event per section entered (`inner`, `outer/ring+sgd` and the
+   train step's `train.*`) on a host row and again on the device's row,
+   and the table must list `inner` and `outer/ring+sgd`;
 10. DDP with accumulation, eval and resume, the same model, two peers
    (PCCLT_SS_HASH=simple-tpu; A=2, B=4, T=1024, eval every 3 steps, a
    checkpoint at step 6): 6 steps, then both restart against a
@@ -1320,20 +1323,24 @@ def phase_pipelined() -> dict:
                 if comm.are_peers_pending():
                     comm.update_topology()
                 time.sleep(0.01)
-            for route, kw in ROUTES:
-                cfg = DilocoConfig(outer_lr=1.0, outer_momentum=0.0,
-                                   nesterov=False, profile=True, **kw)
-                w = torch.zeros(LLAMA700M_PARAMS, device="cuda")
-                dl = Diloco(comm, {"w": w}, cfg)
-                profiles[route, rank], exact[route, rank] = [], []
-                for step in range(2):
-                    # the pseudo-gradient outer - inner is rank + 1
-                    # everywhere; outer_step writes the new outer into w
-                    dl.outer_step({"w": w.sub_(rank + 1)})
-                    profiles[route, rank].append(dl.last_profile)
-                    exact[route, rank].append(bool((w == -1.5 * (step + 1)).all()))
-                outs[route, rank] = w
-                del dl
+            # a stream a peer, so each profile's events time that peer's
+            # work alone and its stream idles through its host phases
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for route, kw in ROUTES:
+                    cfg = DilocoConfig(outer_lr=1.0, outer_momentum=0.0,
+                                       nesterov=False, profile=True, **kw)
+                    w = torch.zeros(LLAMA700M_PARAMS, device="cuda")
+                    dl = Diloco(comm, {"w": w}, cfg)
+                    profiles[route, rank], exact[route, rank] = [], []
+                    for step in range(2):
+                        # the pseudo-gradient outer - inner is rank + 1
+                        # everywhere; outer_step writes the new outer into w
+                        dl.outer_step({"w": w.sub_(rank + 1)})
+                        profiles[route, rank].append(dl.last_profile)
+                        exact[route, rank].append(
+                            bool((w == -1.5 * (step + 1)).all()))
+                    outs[route, rank] = w
+                    del dl
         except Exception as e:  # noqa: BLE001 — raised below
             errors.append((rank, repr(e)))
         finally:
@@ -1503,17 +1510,24 @@ SAVED = re.compile(r"^checkpoint (?:outer )?step (\d+) bytes (\d+) save_s (\S+)$
 
 
 def check_trace(path: Path, sections: dict) -> None:
-    """A --trace-out file: one process_name event, then one complete event
-    per section entered, `sections` giving how often each was entered."""
+    """A --trace-out file of a peer on a card: one process_name event, one
+    thread_name event naming the device's row, then one complete event per
+    section entered on a host row and one on the device's row, `sections`
+    giving how often each was entered."""
+    from pccl_tpu_torch.utils.profiler import DEVICE_TID
+
     events = json.loads(path.read_text())["traceEvents"]
-    meta = [e for e in events if e.get("ph") == "M" and e.get("name") == "process_name"]
-    spans = {}
+    meta = [e for e in events if e.get("ph") == "M"]
+    host, device = {}, {}
     for e in events:
         if e.get("ph") == "X":
-            spans[e["name"]] = spans.get(e["name"], 0) + 1
-    if len(meta) != 1 or spans != sections or len(events) != 1 + sum(sections.values()):
-        raise SmokeError(f"trace {path.name}: {len(meta)} process_name events and "
-                         f"spans {spans}, expected 1 and {sections}")
+            row = device if e["tid"] == DEVICE_TID else host
+            row[e["name"]] = row.get(e["name"], 0) + 1
+    if (sorted(e["name"] for e in meta) != ["process_name", "thread_name"]
+            or host != sections or device != sections
+            or len(events) != 2 + 2 * sum(sections.values())):
+        raise SmokeError(f"trace {path.name}: metadata {meta}, host spans {host}, "
+                         f"device spans {device}, expected {sections} on each")
 
 
 def phase_diloco_resume() -> dict:
@@ -1556,8 +1570,11 @@ def phase_diloco_resume() -> dict:
             if not {"inner", "outer/ring+sgd"} <= table:
                 raise SmokeError(f"9: run {run} peer {rank}: no profile table")
             steps = outer_steps - first
+            inner = steps * r["inner_steps"]
             check_trace(LOG_DIR / f"resume{run}_{rank}.trace.json",
-                        {"inner": steps, "outer/ring+sgd": steps})
+                        {"inner": steps, "outer/ring+sgd": steps,
+                         "train.forward": inner, "train.backward": inner,
+                         "train.optimizer": inner})
         texts.append([text for _, text in peers])
     first_digests = [[row[9] for row in (m.groups() for m in LINE.finditer(t))]
                      for t in texts[0]]

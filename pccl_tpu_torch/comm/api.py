@@ -245,8 +245,8 @@ def trace_clear() -> None:
 
 def trace_dump(path: str) -> None:
     """Write the event ring as Chrome trace-event JSON. Timestamps are
-    CLOCK_MONOTONIC microseconds, the clock of utils/profiler.py's
-    sections."""
+    CLOCK_MONOTONIC microseconds; utils/profiler.Profiler's export shifts
+    them onto its sections' clock."""
     _check(_native.load().pccltTraceDump(path.encode()), "trace dump")
 
 

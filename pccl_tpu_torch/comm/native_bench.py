@@ -462,10 +462,10 @@ def _peer_diloco(rank, master_port, q, world, params_n, outer_steps, windows=1,
         _fence(dev)
         if it >= 2:
             times.append(time.perf_counter() - t0)
-    # one more step with rank 0 profiled for the phase breakdown. Only ONE
-    # rank fences each phase: lockstep allocation bursts of both ranks
-    # distort the per-phase CPU time, and the breakdown should describe
-    # production behavior. Rank 1 runs the step unprofiled alongside.
+    # one more step with rank 0 profiled for the phase breakdown (timing
+    # events on its stream, no fences). Only ONE rank profiles, so the
+    # breakdown describes a step beside an unprofiled peer, as in
+    # production. Rank 1 runs the step unprofiled alongside.
     if rank == 0:
         diloco.cfg = dataclasses.replace(diloco.cfg, profile=True)
     _inner_step(params, rank)
@@ -1791,7 +1791,7 @@ def run_diloco_outer_bench(world: int = 2, params_n: int = 100_000_000,
                            device="cuda", details: bool = False):
     """DiLoCo outer-step wall-clock (device staging + AVG ring + outer SGD)
     at `params_n` parameters on `device`; returns (median outer-step
-    seconds, per-phase breakdown of one fenced step — delta compute, D2H,
+    seconds, per-phase breakdown of one profiled step — delta compute, D2H,
     stage copy, ring, H2D+apply, unflatten), and with ``details`` a third
     item, every rank's result (sorted by rank: digest, first element,
     min/max, steps, peak RSS). Raises unless every rank holds the same

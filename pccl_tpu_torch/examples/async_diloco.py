@@ -25,9 +25,10 @@ digest: BLAKE2b of the outer fp32 vector after the call, equal on every
 peer. The FINAL line adds the digest once finish() has landed the last
 reduce, on a card the peak of the device memory torch allocated
 (peak_alloc_mib), and the process's peak resident host memory
-(peak_rss_mib). --profile prints the host time of the sections `inner`,
-`outer/async` and `outer/finish`; --trace-out writes them as a Chrome
-trace.
+(peak_rss_mib). --profile prints the host and device time of the
+sections `inner`, `outer/async`, `outer/finish` and the train step's
+`train.forward`, `train.backward` and `train.optimizer`; --trace-out
+writes them as a Chrome trace.
 
 --ranks N: the peer is N processes on the mesh factor_mesh(N) over
 (dp, tp), as in sync_diloco (examples/ranks.py). Rank 0 holds the comm
@@ -103,7 +104,9 @@ def _run(args, dev, attn_fn, cfg, mesh):
         schedule=common.make_schedule(args, args.inner_lr,
                                       args.outer_steps * args.inner_steps),
         mesh=mesh)
-    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh)
+    prof = common.make_profiler(args, dev)
+    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh,
+                                         profiler=prof)
     # delayed pseudo-gradients oscillate under heavy momentum: async runs
     # train with the outer momentum off, as the JAX example does
     dl = AsyncDiloco(comm, state.params,
@@ -113,7 +116,6 @@ def _run(args, dev, attn_fn, cfg, mesh):
                      shards=shards)
     ranks.print_mesh(mesh, dev)
     next_batch = common.make_batch_fn(args, cfg.vocab_size)
-    prof = common.make_profiler(args)
 
     def sync():
         if dev.type == "cuda":
@@ -148,6 +150,7 @@ def _run(args, dev, attn_fn, cfg, mesh):
             dl.outer_step_async(state.params)
             sync()
         t_outer = time.perf_counter() - t0
+        prof.resolve()                     # the card is idle: no wait
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
         if lead:

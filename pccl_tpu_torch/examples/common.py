@@ -16,6 +16,7 @@ so both packages train on the same tokens:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -60,10 +61,13 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
                     help="flash: the CUDA kernels (plain versions on the CPU); "
                          "dense: plain attention, CPU only")
     ap.add_argument("--profile", action="store_true",
-                    help="print a table of each section's host time at the "
-                         "end (utils/profiler.py)")
+                    help="print a table of each section's host and device "
+                         "time at the end (utils/profiler.py), the train "
+                         "step's forward, backward and optimizer among them")
     ap.add_argument("--trace-out", default=None,
-                    help="write a Chrome trace-event JSON of the sections")
+                    help="write a Chrome trace-event JSON of the sections, "
+                         "on torch.profiler's clock (with the flight "
+                         "recorder's events under PCCLT_TRACE)")
     ap.add_argument("--no-descent-check", action="store_true",
                     help="exit 0 even if the last loss is not below the first "
                          "(for runs too short to learn, e.g. a few steps at "
@@ -210,17 +214,24 @@ def make_batch_fn(args, vocab: int, split: str = "train"):
     return lambda: synth_batch(rng, args.batch, args.block, vocab)
 
 
-def make_profiler(args):
-    """The section profiler, on under --profile or --trace-out."""
+def make_profiler(args, dev):
+    """The section profiler, on under --profile or --trace-out; on a CUDA
+    `dev` its sections time the card too."""
     from pccl_tpu_torch.utils.profiler import Profiler
 
-    return Profiler(enabled=args.profile or bool(args.trace_out))
+    return Profiler(enabled=args.profile or bool(args.trace_out), device=dev)
 
 
 def finish_profile(args, prof) -> None:
-    """Write --trace-out and print the --profile table."""
+    """Write --trace-out, with the native flight recorder's events where
+    its capture is on (PCCLT_TRACE), and print the --profile table."""
     if args.trace_out:
-        prof.export_chrome_trace(args.trace_out)
+        native = None
+        if os.environ.get("PCCLT_TRACE"):
+            from pccl_tpu_torch.comm import trace_events
+
+            native = trace_events()
+        prof.export_chrome_trace(args.trace_out, native_events=native)
         print(f"trace written to {args.trace_out}", flush=True)
     if args.profile:
         print(prof.summary(), flush=True)

@@ -312,7 +312,9 @@ def _run(args, dev, attn_fn, cfg, mesh):
     # topology votes to its group
     state = train_lib.make_train_state(args.seed, cfg, dev, lr=args.inner_lr,
                                        mesh=mesh)
-    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh)
+    prof = common.make_profiler(args, dev)
+    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh,
+                                         profiler=prof)
 
     def sync():
         if dev.type == "cuda":
@@ -366,7 +368,6 @@ def _run(args, dev, attn_fn, cfg, mesh):
     del full
     lr, mu = args.outer_lr, args.outer_momentum
 
-    prof = common.make_profiler(args)
     next_batch = common.make_batch_fn(args, cfg.vocab_size)
     first_loss = last_loss = None
     step = 0
@@ -415,6 +416,7 @@ def _run(args, dev, attn_fn, cfg, mesh):
                 loss = step_fn(state, tok, tgt)
             loss = float(loss)               # waits for the last inner step
         t_inner = time.perf_counter() - t0
+        prof.resolve()                       # the card is idle: no wait
         counts = ranks.launch_counts(group, [fa.launches[k] for k in (
             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")])
 

@@ -115,7 +115,9 @@ def _run(args, dev, attn_fn, cfg, mesh):
     state = train_lib.make_train_state(
         args.seed, cfg, dev, lr=args.inner_lr,
         schedule=common.make_schedule(args, args.inner_lr, total_steps), mesh=mesh)
-    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh)
+    prof = common.make_profiler(args, dev)
+    step_fn = train_lib.build_train_step(cfg, attn_fn=attn_fn, mesh=mesh,
+                                         profiler=prof)
     dl = Diloco(comm, state.params,
                 DilocoConfig(inner_steps=args.inner_steps, outer_lr=args.outer_lr,
                              quantization=common.quant_from_arg(args.quantize),
@@ -151,7 +153,6 @@ def _run(args, dev, attn_fn, cfg, mesh):
                 print(f"resumed from outer step {start} digest {dl.digest()} "
                       f"restore_s {restore_s:.3f}", flush=True)
 
-    prof = common.make_profiler(args)
     next_batch = common.make_batch_fn(args, cfg.vocab_size)
     # past the batches outer steps [0, start) used, so that a resumed run
     # does not train on them again
@@ -184,6 +185,7 @@ def _run(args, dev, attn_fn, cfg, mesh):
             dl.outer_step(state.params)
             sync()
         t_outer = time.perf_counter() - t0
+        prof.resolve()                     # the card is idle: no wait
         first_loss = loss if first_loss is None else first_loss
         last_loss = loss
         if lead:

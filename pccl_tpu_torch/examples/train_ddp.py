@@ -265,8 +265,10 @@ def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
         args.seed, cfg, dev, lr=args.lr,
         schedule=common.make_schedule(args, args.lr, args.steps), mesh=mesh)
     accum = args.grad_accum
+    prof = common.make_profiler(args, dev)
     loss_and_grad = train_lib.build_loss_and_grad(cfg, attn_fn=attn_fn,
-                                                  accum_steps=accum, mesh=mesh)
+                                                  accum_steps=accum, mesh=mesh,
+                                                  profiler=prof)
 
     def make_ring(comm):
         # a solo tp peer has nothing to gather: its ring is the identity
@@ -275,7 +277,6 @@ def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
             shm_staging=args.shm_staging, tp=tp if in_group else None)
 
     ring = make_ring(comm)
-    prof = common.make_profiler(args)
     next_batch = common.make_batch_fn(args, cfg.vocab_size)
 
     def sync_device():
@@ -455,6 +456,7 @@ def _run(args, dev, attn_fn, make, cfg, mesh) -> int:
             train_lib.apply(state)
             loss = float(loss)
             sync_device()
+        prof.resolve()                     # the card is idle: no wait
         tok_s = accum * args.batch * args.block / (time.perf_counter() - t_start)
         flash = [fa.launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
         rank_launches = ""

@@ -22,8 +22,13 @@ The outer step, as in pccl_tpu/parallel/diloco.py:
 4. the new outer parameters are written into the caller's parameter
    tensors, from which inner training continues.
 
-`cfg.profile` fills `last_profile` with each phase's seconds, fenced with
-torch.cuda.synchronize (the JAX package's phase names).
+`cfg.profile` fills `last_profile` with each phase's seconds (the JAX
+package's phase names), marked by a utils/profiler.Profiler. On a card
+they are read from the timing events that each phase boundary records on
+the stream, so nothing is fenced: a phase reads what it takes inside an
+unprofiled step. The phases run on the host (the stage copy, the ring)
+leave the stream idle, so their events fire as they are recorded and read
+the host's time.
 
 `shared_state()` / `sync_shared_state()` expose outer params, momentum and
 step as a revisioned SharedState staged through host numpy, so a late
@@ -66,8 +71,13 @@ from ..comm import (
     TooFewPeersError,
     shm_ndarray,
 )
+from ..utils.profiler import Profiler
 from .codec import build_codec
 from .ring import _MIN_WINDOW_ELEMS, avg_all_reduce_windowed
+
+
+def _no_mark(name: "str | None" = None) -> None:
+    pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +97,9 @@ class DilocoConfig:
     shm_staging: bool = False
     # split the outer reduce into this many concurrent tagged collectives
     comm_windows: int = 1
-    # record each outer step's phases in Diloco.last_profile (fenced with
-    # device synchronisations, so leave off in production)
+    # record each outer step's phases in Diloco.last_profile (timing events
+    # on the stream, no synchronisation; reading the dict waits for the
+    # step's last event)
     profile: bool = False
 
 
@@ -127,7 +138,8 @@ class Diloco:
         self._shm_stage: Optional[np.ndarray] = None
         self._shm_out: Optional[np.ndarray] = None
         self._side_stream = None
-        self.last_profile: Optional[dict] = None
+        self._last_profile: Optional[dict] = None
+        self._profiler: Optional[Profiler] = None
         self.codec = self._outer_vec = self._momentum_vec = self._delta = None
         self.count = 0
         if not self.lead:
@@ -274,28 +286,20 @@ class Diloco:
         upd = delta.add_(mom, alpha=mu) if self.cfg.nesterov else mom
         self._outer_vec.add_(upd, alpha=-lr)                     # outer -= lr*upd
 
-    def _marker(self):
-        """(profile dict or None, mark): mark(name, t0) fences the device,
-        records the wall and CPU seconds since t0 under name and name_cpu,
-        and returns the new t0. A no-op when profiling is off."""
-        prof = {} if self.cfg.profile else None
-        cpu = [time.process_time()]
-
-        def mark(name: str, t0: float) -> float:
-            if prof is None:
-                return t0
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t1 = time.perf_counter()
-            prof[name] = t1 - t0
-            # CPU seconds beside wall: on a busy host the gap is waiting
-            # (scheduler, peers), not the phase's work
-            c1 = time.process_time()
-            prof[name + "_cpu"] = c1 - cpu[0]
-            cpu[0] = c1
-            return t1
-
-        return prof, mark
+    @property
+    def last_profile(self) -> Optional[dict]:
+        """The phases of the last profiled outer step: seconds each, its CPU
+        seconds under name_cpu, and their sum under total (None before
+        one). The first read after a step waits for its last event (and
+        the profiler's anchor event after it: no wait after a sync)."""
+        if self._profiler is not None:
+            prof = {}
+            for name, st in self._profiler.stats().items():
+                prof[name] = st.device_s if st.device_count else st.total_s
+                prof[name + "_cpu"] = st.cpu_s
+            prof["total"] = sum(v for k, v in prof.items() if not k.endswith("_cpu"))
+            self._last_profile, self._profiler = prof, None
+        return self._last_profile
 
     @torch.no_grad()
     def outer_step(self, inner_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -312,11 +316,12 @@ class Diloco:
         return inner_params
 
     def _outer_step(self, inner_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        prof, mark = self._marker()
-        t = time.perf_counter()
+        prof = Profiler(device=self.device) if self.cfg.profile else None
+        mark = _no_mark if prof is None else prof.mark
+        mark()
         delta = self.codec.flat_delta_vec(self._outer_vec, inner_params,
                                           out=self._delta)
-        t = mark("delta_compute", t)
+        mark("delta_compute")
         # a quantized ring sends from its quantize scratch, not from the
         # stage: staging would be a pure extra copy there
         use_shm = (self.cfg.shm_staging and self.comm is not None
@@ -324,36 +329,37 @@ class Diloco:
         if use_shm and self.cfg.comm_windows > 1 and self._reduce_pipelined(delta):
             # D2H, staging and ring overlap: one combined phase
             src = torch.from_numpy(self._shm_out)
-            t = mark("d2h_stage_ring_pipelined", t)
+            # the host has waited for every window's event on the side
+            # stream, so the boundary on the idle main stream comes after
+            mark("d2h_stage_ring_pipelined")
         else:
             src = self._d2h(delta)
-            t = mark("d2h", t)
+            mark("d2h")
             if use_shm:
                 self._ensure_shm_stage()
                 np.copyto(self._shm_stage, src.numpy())
-                t = mark("stage_copy", t)
+                mark("stage_copy")
                 self._reduce_host(self._shm_stage, self._shm_out)
                 src = torch.from_numpy(self._shm_out)
             else:
-                t = mark("stage_copy", t)   # the pinned buffer feeds the ring
+                mark("stage_copy")   # the pinned buffer feeds the ring
                 if self.comm is not None:
                     if self._host_out is None:
                         self._host_out = self._pinned()
                     self._reduce_host(src.numpy(), self._host_out.numpy())
                     src = self._host_out
-            t = mark("ring_reduce", t)
+            mark("ring_reduce")
         # H2D without a host wait from a pinned buffer: the next write to it
         # comes after a synchronising D2H, which orders after this copy. From
         # shm (pageable) the copy returns once the bytes have left the buffer
         delta.copy_(src, non_blocking=True)
         self._apply(delta)
         self.step += 1
-        t = mark("h2d_apply", t)
+        mark("h2d_apply")
         self.codec.unflat_into(self._outer_vec, inner_params)
-        mark("unflat_out", t)
+        mark("unflat_out")
         if prof is not None:
-            prof["total"] = sum(v for k, v in prof.items() if not k.endswith("_cpu"))
-            self.last_profile = prof
+            self._profiler = prof
         return inner_params
 
     def digest(self) -> Optional[str]:

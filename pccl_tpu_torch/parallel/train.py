@@ -32,6 +32,7 @@ rank of the tp group, for a DDP peer made of several ranks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional
@@ -181,22 +182,32 @@ def _mean_over(state: TrainState, loss, mesh, axes) -> torch.Tensor:
     return vec[-1].clone()
 
 
+def _sections(profiler):
+    """profiler.section, or a section that records nothing without one."""
+    if profiler is None:
+        return lambda name: contextlib.nullcontext()
+    return profiler.section
+
+
 def build_loss_and_grad(cfg, attn_fn=None, remat=False,
                         loss_chunk: "int | None" = None, accum_steps: int = 1,
-                        mesh=None, seq_axis: "str | None" = None):
+                        mesh=None, seq_axis: "str | None" = None, profiler=None):
     """Returns loss_and_grad(state, tokens, targets) -> loss (a detached
     0-d tensor, not synchronised), leaving the gradients in each
-    parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh and
-    seq_axis as in build_train_step."""
+    parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh,
+    seq_axis and profiler as in build_train_step."""
     model = family(cfg)
     shards = tp_shards(cfg, mesh)
     tp = None if shards is None else shards.group
+    section = _sections(profiler)
 
     def run(state: TrainState, tokens, targets, pos_offset: int = 0):
         def micro(state: TrainState, tokens, targets):
-            loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn,
-                                 remat, loss_chunk, pos_offset, tp=tp)
-            loss.backward()
+            with section("train.forward"):
+                loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn,
+                                     remat, loss_chunk, pos_offset, tp=tp)
+            with section("train.backward"):
+                loss.backward()
             return loss.detach()
 
         if accum_steps > 1:
@@ -229,7 +240,7 @@ def apply(state: TrainState) -> None:
 
 def build_train_step(cfg, attn_fn=None, remat=False,
                      loss_chunk: "int | None" = None, accum_steps: int = 1,
-                     mesh=None, seq_axis: "str | None" = None):
+                     mesh=None, seq_axis: "str | None" = None, profiler=None):
     """Returns step(state, tokens, targets) -> loss (a detached 0-d tensor,
     not synchronised): build_loss_and_grad, then apply. attn_fn: the
     attention op (e.g. ops.flash_attention); remat: checkpointing, False,
@@ -250,13 +261,19 @@ def build_train_step(cfg, attn_fn=None, remat=False,
     on every rank. A "tp" axis runs the model tensor-parallel over its
     group on the state's blocks (make_train_state(mesh=)); the tp ranks
     take the same batch rows, and remat replays the tp collectives in one
-    order on every rank."""
+    order on every rank.
+
+    profiler (utils/profiler.Profiler): the step records the sections
+    `train.forward` and `train.backward` (each microbatch's under
+    accumulation) and `train.optimizer`; None records nothing."""
+    section = _sections(profiler)
     loss_and_grad = build_loss_and_grad(cfg, attn_fn, remat, loss_chunk,
-                                        accum_steps, mesh, seq_axis)
+                                        accum_steps, mesh, seq_axis, profiler)
 
     def step(state: TrainState, tokens, targets):
         loss = loss_and_grad(state, tokens, targets)
-        apply(state)
+        with section("train.optimizer"):
+            apply(state)
         return loss
 
     return step

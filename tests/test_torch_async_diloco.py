@@ -186,6 +186,70 @@ def test_sync_outer_step_matches_jax_bit_for_bit(momentum):
     assert p["total"] == pytest.approx(sum(p[k] for k in want))
 
 
+class _FakeEvent:
+    """torch.cuda.Event on the host: fires when recorded, on a clock that
+    advances 1 ms a record."""
+
+    clock_ms = 0.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.t = None
+
+    def record(self, stream=None):
+        assert stream == "main"
+        _FakeEvent.clock_ms += 1.0
+        self.t = _FakeEvent.clock_ms
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_profiled_outer_step_never_synchronizes(monkeypatch):
+    """The card's profile path, run on the CPU with host-side events:
+    `profile=True` makes no torch.cuda.synchronize call in an outer step,
+    records one event a phase boundary on the current stream, reads each
+    phase from event to event when last_profile is read, keeps the key set,
+    and leaves the outer vector bit-equal with the unprofiled step's."""
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: syncs.append(a))
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "main")
+    # the host buffers of a card, unpinned: this torch has no CUDA
+    monkeypatch.setattr(diloco.Diloco, "_pinned",
+                        lambda self: torch.empty(self.count, dtype=torch.float32))
+    plain = diloco.Diloco(None, _torch(_tree(0)))
+    prof = diloco.Diloco(None, _torch(_tree(0)), diloco.DilocoConfig(profile=True))
+    prof.device = torch.device("cuda")
+    want = PROFILE_KEYS["unstaged"]
+    for step in range(2):
+        _FakeEvent.clock_ms = 0.0
+        plain.outer_step(_torch(_tree(10 + step)))
+        prof.outer_step(_torch(_tree(10 + step)))
+        assert _FakeEvent.clock_ms == 1 + len(want) and not syncs
+        assert torch.equal(plain.outer_vec, prof.outer_vec)
+        p = prof.last_profile
+        assert sorted(p) == sorted(want + [k + "_cpu" for k in want] + ["total"])
+        assert [p[k] for k in want] == [1e-3] * len(want)
+        assert p["total"] == pytest.approx(len(want) * 1e-3)
+        assert prof.last_profile is p
+    assert not syncs
+
+
+def test_diloco_never_calls_device_synchronize():
+    """parallel/diloco.py calls torch.cuda.synchronize nowhere, so no
+    profile path fences the device."""
+    import ast
+
+    tree = ast.parse(Path(diloco.__file__).read_text())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+             and n.attr == "synchronize" and ast.unparse(n.value) == "torch.cuda"]
+    assert calls == []
+
+
 def _wait_world(comm, n=2, timeout=30.0):
     deadline = time.time() + timeout
     while comm.world_size < n:

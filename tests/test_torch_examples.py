@@ -13,6 +13,7 @@ never stopped.
 
 import argparse
 import importlib.util
+import json
 import os
 import re
 import shutil
@@ -201,6 +202,40 @@ def test_sync_diloco_resumes_solo(tmp_path, monkeypatch, capsys, one_thread):
 DDP_ARGS = ["--solo", "--device", "cpu", "--model", "nano", "--batch", "2",
             "--grad-accum", "2", "--data", "text", "--lr-schedule", "cosine",
             "--warmup-steps", "2", "--no-descent-check"]
+
+
+def test_sync_diloco_trace_out_splits_the_step_and_merges_the_recorder(
+        tmp_path, monkeypatch, capsys, one_thread):
+    """--profile and --trace-out: the table and the trace hold the train
+    step's forward, backward and optimizer beside the loop's sections, and
+    under PCCLT_TRACE the trace merges the flight recorder's events
+    (comm.trace_events(), CLOCK_MONOTONIC microseconds) onto the sections'
+    time.time_ns() clock."""
+    import time
+
+    import pccl_tpu_torch.comm as comm_mod
+
+    ring = {"name": "ring", "ph": "X", "pid": 9, "ts": time.monotonic_ns() / 1e3,
+            "dur": 5}
+    monkeypatch.setenv("PCCLT_TRACE", str(tmp_path / "native.json"))
+    monkeypatch.setattr(comm_mod, "trace_events", lambda: [dict(ring)])
+    path = tmp_path / "trace.json"
+    assert sync_diloco.main(DILOCO_ARGS + [
+        "--outer-steps", "2", "--profile", "--trace-out", str(path)]) == 0
+    out = capsys.readouterr().out
+    for name in ("inner", "outer/ring+sgd", "train.forward", "train.backward",
+                 "train.optimizer"):
+        assert re.search(rf"^{re.escape(name)}\s+\d+", out, re.M), name
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {}
+    for e in events:
+        if e["ph"] == "X" and e["pid"] == 0:
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    assert spans == {"inner": 2, "outer/ring+sgd": 2, "train.forward": 6,
+                     "train.backward": 6, "train.optimizer": 6}
+    native = [e for e in events if e["pid"] == 9]
+    assert len(native) == 1
+    assert abs(native[0]["ts"] - time.time_ns() / 1e3) < 60e6
 
 
 def test_train_ddp_resumes_solo_bit_equal(tmp_path, capsys, one_thread):

@@ -22,6 +22,7 @@ from pccl_tpu.parallel import mesh as mesh_lib
 from pccl_tpu.parallel import train as jtrain
 from pccl_tpu_torch.models import convert, gpt
 from pccl_tpu_torch.parallel import train
+from pccl_tpu_torch.utils.profiler import Profiler
 
 LR = 1e-3
 
@@ -122,6 +123,37 @@ def test_accumulated_loss_and_grads_match_jax(A):
     means = [one(state, torch.from_numpy(tok[i]), torch.from_numpy(tgt[i]))
              for i in range(A)]
     assert loss.item() == pytest.approx(float(sum(means)) / A, abs=1e-6)
+
+
+@pytest.mark.parametrize("A", [1, 2])
+def test_train_step_sections_leave_the_step_unchanged(A):
+    """build_train_step(profiler=) records train.forward and train.backward
+    once a microbatch and train.optimizer once a step, and trains the
+    parameters bit-equal with profiler=None; a disabled profiler records
+    nothing. build_loss_and_grad(profiler=) records the
+    forward and backward alone."""
+    tcfg = gpt.tiny_config(compute_dtype=torch.float32)
+    prof = Profiler()
+    states = [train.make_train_state(0, tcfg, "cpu", lr=LR) for _ in range(3)]
+    steps = [train.build_train_step(tcfg, accum_steps=A),
+             train.build_train_step(tcfg, accum_steps=A, profiler=prof),
+             train.build_train_step(tcfg, accum_steps=A,
+                                    profiler=Profiler(enabled=False))]
+    for seed in range(2):
+        tok, tgt = _microbatches(tcfg, A, seed)
+        losses = [step(st, torch.from_numpy(tok), torch.from_numpy(tgt))
+                  for step, st in zip(steps, states)]
+        assert losses[0].item() == losses[1].item() == losses[2].item()
+    stats = prof.stats()
+    assert {k: v.count for k, v in stats.items()} == {
+        "train.forward": 2 * A, "train.backward": 2 * A, "train.optimizer": 2}
+    for st in states[1:]:
+        for name, p in states[0].params.items():
+            assert torch.equal(st.params[name], p), name
+    half = Profiler()
+    train.build_loss_and_grad(tcfg, accum_steps=A, profiler=half)(
+        states[0], torch.from_numpy(tok), torch.from_numpy(tgt))
+    assert sorted(half.stats()) == ["train.backward", "train.forward"]
 
 
 @pytest.mark.parametrize("shape", [(3, 2, 32), (2, 32), (2, 2, 32)])

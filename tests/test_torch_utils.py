@@ -15,6 +15,7 @@ import resource
 import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +29,7 @@ from pccl_tpu.utils import checkpoint as jcheckpoint
 from pccl_tpu.utils import data as jdata
 from pccl_tpu_torch.parallel import diloco
 from pccl_tpu_torch.utils import checkpoint, data
-from pccl_tpu_torch.utils.profiler import Profiler
+from pccl_tpu_torch.utils.profiler import DEVICE_TID, Profiler
 
 
 # ------------------------------------------------------------ TokenDataset
@@ -88,29 +89,152 @@ def test_profiler_sections_and_trace(tmp_path):
 
 
 def test_profiler_merges_native_events_and_refuses_overwrite(tmp_path):
+    """The flight recorder's events (CLOCK_MONOTONIC microseconds) land on
+    the sections' clock, shifted by the one offset the profiler measured
+    when it was made; an event stamped now reads now."""
     prof = Profiler()
     with prof.section("s"):
         pass
-    t0_us = prof._t0 * 1e6
-    native = [{"name": "ring", "ph": "X", "pid": 7, "ts": t0_us + 50.0, "dur": 3},
-              {"name": "early", "ph": "i", "pid": 7, "ts": t0_us - 10.0},
+    now_us = time.monotonic_ns() / 1e3
+    native = [{"name": "ring", "ph": "X", "pid": 7, "ts": now_us, "dur": 3},
+              {"name": "early", "ph": "i", "pid": 7, "ts": now_us - 10.0},
               {"name": "meta", "ph": "M", "pid": 7}]
+    wall_us = time.time_ns() / 1e3
     path = tmp_path / "t.json"
     prof.export_chrome_trace(str(path), native_events=native)
     events = json.loads(path.read_text())["traceEvents"]
     assert [e["name"] for e in events] == ["process_name", "s", "ring", "early", "meta"]
-    assert events[2]["ts"] == pytest.approx(50.0) and events[2]["pid"] == 7
-    assert events[3]["ts"] == 0.0
-    assert native[0]["ts"] == t0_us + 50.0          # the caller's dicts stay
+    off = prof.monotonic_offset_us
+    assert events[2]["ts"] == now_us + off and events[2]["pid"] == 7
+    assert events[3]["ts"] == now_us - 10.0 + off
+    assert abs(events[2]["ts"] - wall_us) < 5e3
+    assert "ts" not in events[4]
+    assert native[0]["ts"] == now_us                # the caller's dicts stay
     with pytest.raises(FileExistsError):
         prof.export_chrome_trace(str(path), overwrite=False)
 
 
+def test_profiler_stamps_on_the_time_ns_clock(tmp_path):
+    """Sections are stamped with time.time_ns(), torch.profiler's kernel
+    clock: the exported span lies within 5 ms of the stamps taken around
+    it, in microseconds."""
+    prof = Profiler()
+    before = time.time_ns()
+    with prof.section("s"):
+        time.sleep(0.002)
+    after = time.time_ns()
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    span = json.loads(path.read_text())["traceEvents"][1]
+    assert abs(span["ts"] * 1e3 - before) < 5e6
+    assert abs((span["ts"] + span["dur"]) * 1e3 - after) < 5e6
+    assert span["dur"] >= 2e3
+
+
 def test_disabled_profiler_records_nothing():
-    prof = Profiler(enabled=False)
+    prof = Profiler(enabled=False, device="cuda")
     with prof.section("x"):
         pass
+    prof.resolve()
     assert prof.stats() == {} and prof.summary() == "(no sections recorded)"
+
+
+class FakeEvent:
+    """torch.cuda.Event on the host: it fires when recorded, at a time the
+    test sets on the class."""
+
+    now_ms = 0.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = FakeEvent.now_ms
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_profiler_device_spans_without_waiting(monkeypatch, tmp_path):
+    """On a CUDA device a section records an event at its start and end on
+    the current stream and never synchronises; resolve() reads the device
+    seconds and the lag of the device's start behind the host's, placed on
+    the host clock by an anchor event stamped once it has fired. The
+    export gives the device spans their own named row."""
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "s")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a))
+    FakeEvent.now_ms = 0.0
+    prof = Profiler(device="cuda")
+    for dur_ms in (3.0, 5.0):
+        with prof.section("k"):
+            FakeEvent.now_ms += dur_ms
+    assert prof._pending and not syncs
+    FakeEvent.now_ms += 100.0         # the anchor fires 100 ms after the last
+    before = time.time_ns()
+    prof.resolve()
+    after = time.time_ns()
+    assert not syncs and not prof._pending
+    st = prof.stats()["k"]
+    assert st.count == 2 and st.device_count == 2
+    assert st.device_s == pytest.approx(0.008)
+    assert "device_mean_ms" in prof.summary() and "4.00" in prof.summary()
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    assert events[1] == {"ph": "M", "name": "thread_name", "pid": 0,
+                         "tid": DEVICE_TID, "args": {"name": "device"}}
+    dev = [e for e in events if e.get("tid") == DEVICE_TID and e["ph"] == "X"]
+    host = [e for e in events if e["ph"] == "X" and e["tid"] != DEVICE_TID]
+    assert [e["dur"] for e in dev] == pytest.approx([3e3, 5e3])
+    # microseconds since the epoch hold a quarter-microsecond step as floats
+    assert dev[1]["ts"] - dev[0]["ts"] == pytest.approx(3e3, abs=1)
+    # the last span ended 100 ms before the anchor, stamped inside resolve()
+    end_us = dev[1]["ts"] + dev[1]["dur"]
+    assert before / 1e3 - 100e3 - 1 <= end_us <= after / 1e3 - 100e3 + 1
+    # the lag: each device start minus its host start
+    assert st.lag_s == pytest.approx(
+        sum(d["ts"] - h["ts"] for d, h in zip(dev, host)) / 1e6, abs=1e-5)
+
+
+def test_profiler_marks_consecutive_phases(monkeypatch):
+    """mark(name) closes the phase since the previous mark as a section,
+    one event a boundary on a card; the first mark, and one without a
+    name, only start. Each section carries the process's CPU seconds,
+    and reset() forgets the last mark."""
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "s")
+    FakeEvent.now_ms = 0.0
+    prof = Profiler(device="cuda")
+    prof.mark("unused")
+    for name, ms in (("a", 2.0), ("b", 3.0)):
+        FakeEvent.now_ms += ms
+        prof.mark(name)
+    FakeEvent.now_ms += 50.0
+    prof.mark()
+    FakeEvent.now_ms += 4.0
+    prof.mark("a")
+    assert len(prof._pending) == 3
+    stats = prof.stats()
+    assert list(stats) == ["a", "b"]
+    assert stats["a"].count == stats["a"].device_count == 2
+    assert stats["a"].device_s == pytest.approx(0.006)
+    assert stats["b"].device_s == pytest.approx(0.003)
+    assert stats["a"].cpu_s >= 0 and stats["a"].total_s >= 0
+    assert "cpu_s" in prof.summary()
+    prof.reset()
+    prof.mark("c")
+    assert prof.stats() == {}
+    host = Profiler()
+    host.mark()
+    time.sleep(0.002)
+    host.mark("h")
+    assert host.stats()["h"].total_s >= 0.002 and host.stats()["h"].device_count == 0
 
 
 # ------------------------------------------------------------ Checkpointer
