@@ -81,6 +81,18 @@ def run_blocks(block_fn, x: torch.Tensor, n_layer: int, remat) -> torch.Tensor:
     return x
 
 
+def layer_views(params, keys) -> list:
+    """The layers' slices of the stacked [L, ...] leaves `keys` of params,
+    one dict a layer. Each leaf is unbound once, so its backward
+    (UnbindBackward0) stacks the L slice gradients in one pass; indexing
+    params[k][layer] in every block would zero-fill a whole [L, ...]
+    gradient per layer and add the L of them. Call it once per forward,
+    outside any checkpoint: a block's recompute then reads the same views,
+    and every gradient reaches the one unbind."""
+    slices = {k: params[k].unbind(0) for k in keys}
+    return [dict(zip(slices, layer)) for layer in zip(*slices.values())]
+
+
 class _MatmulF32Out(torch.autograd.Function):
     """x @ w with operands in x's dtype, fp32 accumulation and an fp32
     result (JAX's preferred_element_type=float32). The backward takes the

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (chunked_ce_loss, column, column_input, embed,
-                      gather_ce_loss, row_parallel, run_blocks,
+                      gather_ce_loss, layer_views, row_parallel, run_blocks,
                       tp_group, tp_head_loss)
 
 
@@ -139,25 +139,26 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: GPTConfig, attn_fn=None, pos_offset=0,
-           tp=None):
-    """One block on this rank's heads: H = the local qkv width / 3 Dh (all
-    heads without a tp group)."""
+def _block(x, layer: Dict[str, torch.Tensor], cfg: GPTConfig, attn_fn=None,
+           pos_offset=0, tp=None):
+    """One block on this rank's heads, with `layer` its slices of the
+    stacked leaves (layer_views): H = the local qkv width / 3 Dh (all heads
+    without a tp group)."""
     B, T, _ = x.shape
     Dh = cfg.head_dim
-    h = _rmsnorm(x, params["ln1_g"][layer])
-    qkv = column(column_input(h, tp), params["attn_qkv"][layer], h.dtype, tp)
+    h = _rmsnorm(x, layer["ln1_g"])
+    qkv = column(column_input(h, tp), layer["attn_qkv"], h.dtype, tp)
     q, k, v = qkv.chunk(3, dim=-1)
     H = q.shape[-1] // Dh
     q = _rope(q.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     k = _rope(k.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, H, Dh)
     att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
-    x = x + row_parallel(att, params["attn_out"][layer], tp)
-    h = _rmsnorm(x, params["ln2_g"][layer])
-    h = F.gelu(column(column_input(h, tp), params["mlp_in"][layer], h.dtype, tp),
+    x = x + row_parallel(att, layer["attn_out"], tp)
+    h = _rmsnorm(x, layer["ln2_g"])
+    h = F.gelu(column(column_input(h, tp), layer["mlp_in"], h.dtype, tp),
                approximate="tanh")
-    return x + row_parallel(h, params["mlp_out"][layer], tp)
+    return x + row_parallel(h, layer["mlp_out"], tp)
 
 
 def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
@@ -166,8 +167,8 @@ def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
     hidden states [B, T, d] (the same on every rank of a tp group)."""
     tp = tp_group(tp)
     x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
-    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
-                                           pos_offset, tp),
+    layers = layer_views(params, _LAYER_KEYS)
+    x = run_blocks(lambda h, i: _block(h, layers[i], cfg, attn_fn, pos_offset, tp),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 

@@ -32,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ._common import (chunked_ce_loss, column, column_input, embed,
-                      gather_ce_loss, kv_grad_sum, row_parallel, run_blocks,
-                      tp_group, tp_head_loss)
+                      gather_ce_loss, kv_grad_sum, layer_views, row_parallel,
+                      run_blocks, tp_group, tp_head_loss)
 from .gpt import _rmsnorm, _rope
 
 
@@ -58,6 +58,10 @@ class LlamaConfig:
         if self.n_head % self.n_kv_head:
             raise ValueError(f"n_kv_head {self.n_kv_head} must divide n_head "
                              f"{self.n_head}")
+
+
+_LAYER_KEYS = ("ln1_g", "ln2_g", "attn_q", "attn_kv", "attn_out", "mlp_gate",
+               "mlp_up", "mlp_down")
 
 
 def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
@@ -124,30 +128,31 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, params, layer: int, cfg: LlamaConfig, attn_fn=None, pos_offset=0,
-           tp=None):
-    """One block on this rank's heads (all of them without a tp group):
-    H and Hkv follow from the local q and kv widths."""
+def _block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
+           pos_offset=0, tp=None):
+    """One block on this rank's heads (all of them without a tp group),
+    with `layer` its slices of the stacked leaves (layer_views): H and Hkv
+    follow from the local q and kv widths."""
     B, T, _ = x.shape
     Dh = cfg.head_dim
-    h = _rmsnorm(x, params["ln1_g"][layer])
+    h = _rmsnorm(x, layer["ln1_g"])
     h_in = column_input(h, tp)
-    q = column(h_in, params["attn_q"][layer], h.dtype, tp)
+    q = column(h_in, layer["attn_q"], h.dtype, tp)
     H = q.shape[-1] // Dh
     q = q.reshape(B, T, H, Dh)
-    k, v = column(h_in, params["attn_kv"][layer], h.dtype, tp,
+    k, v = column(h_in, layer["attn_kv"], h.dtype, tp,
                   w_sum=kv_grad_sum(cfg, tp)).chunk(2, dim=-1)
     Hkv = k.shape[-1] // Dh
     q = _rope(q, cfg.rope_theta, pos_offset)
     k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, Hkv, Dh)
     att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
-    x = x + row_parallel(att, params["attn_out"][layer], tp)
-    h = _rmsnorm(x, params["ln2_g"][layer])
+    x = x + row_parallel(att, layer["attn_out"], tp)
+    h = _rmsnorm(x, layer["ln2_g"])
     h_in = column_input(h, tp)
-    gated = F.silu(column(h_in, params["mlp_gate"][layer], h.dtype, tp)) \
-        * column(h_in, params["mlp_up"][layer], h.dtype, tp)
-    return x + row_parallel(gated, params["mlp_down"][layer], tp)
+    gated = F.silu(column(h_in, layer["mlp_gate"], h.dtype, tp)) \
+        * column(h_in, layer["mlp_up"], h.dtype, tp)
+    return x + row_parallel(gated, layer["mlp_down"], tp)
 
 
 def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
@@ -156,8 +161,8 @@ def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
     hidden states [B, T, d] (the same on every rank of a tp group)."""
     tp = tp_group(tp)
     x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
-    x = run_blocks(lambda h, layer: _block(h, params, layer, cfg, attn_fn,
-                                           pos_offset, tp),
+    layers = layer_views(params, _LAYER_KEYS)
+    x = run_blocks(lambda h, i: _block(h, layers[i], cfg, attn_fn, pos_offset, tp),
                    x, cfg.n_layer, remat)
     return _rmsnorm(x, params["lnf_g"])
 

@@ -24,6 +24,7 @@ from typing import Callable, Dict
 import torch
 
 from ..models import gpt
+from ..models._common import layer_views
 from .mesh import copy_to, reduce_from
 
 
@@ -56,9 +57,10 @@ class _Shift(torch.autograd.Function):
 
 
 def _run_local_stack(layers_local, x, cfg: gpt.GPTConfig, attn_fn):
-    """One stage's layers, in order."""
-    for layer in range(next(iter(layers_local.values())).shape[0]):
-        x = gpt._block(x, layers_local, layer, cfg, attn_fn)
+    """One stage's layers, in order, on views made anew at each call (the
+    pipeline calls it once per tick)."""
+    for layer in layer_views(layers_local, gpt._LAYER_KEYS):
+        x = gpt._block(x, layer, cfg, attn_fn)
     return x
 
 

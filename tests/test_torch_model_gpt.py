@@ -22,6 +22,8 @@ from pccl_tpu.ops import flash_attention as jax_flash
 from pccl_tpu_torch.models import convert, gpt
 from pccl_tpu_torch.models._common import matmul_f32
 from pccl_tpu_torch.ops.flash_attention import flash_attention
+from pccl_tpu_torch.parallel import pipeline, train
+from torch_layer_views import edges_into, indexed_hidden
 
 TOL = 1e-4
 JAX_ATTN = partial(jax_flash, block_q=32, block_k=32, interpret=True)
@@ -185,3 +187,79 @@ def test_init_params_statistics():
     assert torch.equal(p["ln1_g"], torch.ones(2, 128))
     q = gpt.init_params(torch.Generator().manual_seed(0), cfg)
     assert all(torch.equal(p[k], q[k]) for k in p)
+
+
+# ------------------------------------------------ the stacked leaves' views
+
+MODES = [False, True, "dots", "sqrt"]
+
+
+def _small(dtype=torch.float32):
+    return gpt.tiny_config(n_layer=4, n_head=2, n_embd=32, vocab_size=64,
+                           block_size=16, compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("remat", MODES, ids=str)
+def test_layer_views_keep_the_indexed_gradients(remat, dtype, accum_steps,
+                                                monkeypatch):
+    """One train step with each leaf unbound once per forward gives every
+    leaf's .grad, and the updated parameters, bitwise equal to the step
+    that indexed each layer's slice inside its block."""
+    cfg = _small(dtype)
+    g = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (accum_steps, 2, 16), generator=g)
+    tgt = torch.randint(0, cfg.vocab_size, (accum_steps, 2, 16), generator=g)
+    if accum_steps == 1:
+        tok, tgt = tok[0], tgt[0]
+    step = train.build_train_step(cfg, attn_fn=flash_attention, remat=remat,
+                                  accum_steps=accum_steps)
+    states = []
+    for hidden in (gpt.hidden, indexed_hidden(gpt)):
+        monkeypatch.setattr(gpt, "hidden", hidden)
+        state = train.make_train_state(0, cfg, device="cpu")
+        step(state, tok, tgt)
+        states.append(state.params)
+    views, indexed = states
+    for name in gpt.param_shapes(cfg):
+        assert views[name].grad.abs().sum() > 0, name
+        assert torch.equal(views[name].grad, indexed[name].grad), name
+        assert torch.equal(views[name], indexed[name]), name
+
+
+@pytest.mark.parametrize("remat", MODES, ids=str)
+def test_one_unbind_reaches_each_stacked_leaf(remat):
+    """The only node with an edge into a stacked leaf's AccumulateGrad is
+    one UnbindBackward0; the indexed forward, the control, had n_layer
+    SelectBackward0 there."""
+    cfg = _small()
+    params = {k: v.requires_grad_(True) for k, v in
+              gpt.init_params(torch.Generator().manual_seed(0), cfg).items()}
+    tok = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(1))
+    stacked = {k: params[k] for k in gpt._LAYER_KEYS}
+    assert set(stacked) == {k for k, s in gpt.param_shapes(cfg).items()
+                            if len(s) > 1 and s[0] == cfg.n_layer}
+    loss = gpt.loss_fn(params, tok, tok, cfg, remat=remat)
+    assert edges_into(loss, stacked) == \
+        {k: {"UnbindBackward0": 1} for k in stacked}
+    x = indexed_hidden(gpt)(params, tok, cfg, remat=remat)
+    assert edges_into(x.sum(), stacked) == \
+        {k: {"SelectBackward0": cfg.n_layer} for k in stacked}
+
+
+def test_one_unbind_reaches_each_stage_leaf():
+    """One pipeline stage's local stack (2 of the stage's layers): the
+    same, with one unbind per call."""
+    cfg = _small()
+    full = gpt.init_params(torch.Generator().manual_seed(0), cfg)
+    local = {k: full[k][:2].clone().requires_grad_(True)
+             for k in gpt._LAYER_KEYS}
+    x = torch.randn(2, 16, cfg.n_embd, generator=torch.Generator().manual_seed(1))
+    out = pipeline._run_local_stack(local, x, cfg, flash_attention)
+    assert edges_into(out.square().mean(), local) == \
+        {k: {"UnbindBackward0": 1} for k in local}
+    out = pipeline._run_local_stack(local, out, cfg, None)
+    assert edges_into(out.square().mean(), local) == \
+        {k: {"UnbindBackward0": 2} for k in local}

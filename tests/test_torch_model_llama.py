@@ -28,6 +28,7 @@ from pccl_tpu.parallel import train as jtrain
 from pccl_tpu_torch.models import convert, gpt, llama
 from pccl_tpu_torch.ops.flash_attention import flash_attention
 from pccl_tpu_torch.parallel import codec, train
+from torch_layer_views import edges_into, indexed_hidden
 
 TOL = 1e-4
 LR = 1e-3
@@ -269,3 +270,65 @@ def test_causality():
         l2 = llama.forward(params, t2, cfg, attn_fn=attn)
         torch.testing.assert_close(l1[0, :7], l2[0, :7], rtol=0, atol=1e-5)
         assert not torch.allclose(l1[0, 7], l2[0, 7])
+
+
+# ------------------------------------------------ the stacked leaves' views
+
+MODES = [False, True, "dots", "sqrt"]
+
+
+def _small(dtype=torch.float32):
+    """G = 3 (H 6 over Hkv 2) at head dim 16, 4 layers."""
+    return llama.tiny_config(n_layer=4, n_head=6, n_kv_head=2, n_embd=96,
+                             ffn_dim=160, vocab_size=64, block_size=16,
+                             compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("remat", MODES, ids=str)
+def test_layer_views_keep_the_indexed_gradients(remat, dtype, accum_steps,
+                                                monkeypatch):
+    """One train step with each leaf unbound once per forward gives every
+    leaf's .grad, and the updated parameters, bitwise equal to the step
+    that indexed each layer's slice inside its block."""
+    cfg = _small(dtype)
+    g = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (accum_steps, 2, 16), generator=g)
+    tgt = torch.randint(0, cfg.vocab_size, (accum_steps, 2, 16), generator=g)
+    if accum_steps == 1:
+        tok, tgt = tok[0], tgt[0]
+    step = train.build_train_step(cfg, attn_fn=flash_attention, remat=remat,
+                                  accum_steps=accum_steps)
+    states = []
+    for hidden in (llama.hidden, indexed_hidden(llama)):
+        monkeypatch.setattr(llama, "hidden", hidden)
+        state = train.make_train_state(0, cfg, device="cpu")
+        step(state, tok, tgt)
+        states.append(state.params)
+    views, indexed = states
+    for name in llama.param_shapes(cfg):
+        assert views[name].grad.abs().sum() > 0, name
+        assert torch.equal(views[name].grad, indexed[name].grad), name
+        assert torch.equal(views[name], indexed[name]), name
+
+
+@pytest.mark.parametrize("remat", MODES, ids=str)
+def test_one_unbind_reaches_each_stacked_leaf(remat):
+    """The only node with an edge into a stacked leaf's AccumulateGrad is
+    one UnbindBackward0; the indexed forward, the control, had n_layer
+    SelectBackward0 there."""
+    cfg = _small()
+    params = {k: v.requires_grad_(True) for k, v in
+              llama.init_params(torch.Generator().manual_seed(0), cfg).items()}
+    tok = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(1))
+    stacked = {k: params[k] for k in llama._LAYER_KEYS}
+    assert set(stacked) == {k for k, s in llama.param_shapes(cfg).items()
+                            if len(s) > 1 and s[0] == cfg.n_layer}
+    loss = llama.loss_fn(params, tok, tok, cfg, remat=remat)
+    assert edges_into(loss, stacked) == \
+        {k: {"UnbindBackward0": 1} for k in stacked}
+    x = indexed_hidden(llama)(params, tok, cfg, remat=remat)
+    assert edges_into(x.sum(), stacked) == \
+        {k: {"SelectBackward0": cfg.n_layer} for k in stacked}
