@@ -50,7 +50,7 @@ def run(spec: dict, dev) -> dict:
     step_fn = faults.wrap_step(
         spec.get("fault"), train_lib.build_train_step(cfg, **opts),
         train_lib.build_loss_and_grad(cfg, **opts))
-    feed = weights.Batches(seed, rank, B, T, cfgd["vocab_size"], dev)
+    feed = weights.Batches(seed, rank, B, T, cfgd["vocab_size"], dev, tr.get("token_law"))
     sync(dev)
     marks_setup = {"state": time.time()}
     # a peer alone on its card has no ring: the chip's share of a DiLoCo

@@ -1,7 +1,8 @@
 """The whole step's share of the cards' bf16 peak: tokens_per_s of the run
-times the model FLOPs of a token (flops.flops_per_token: 6 x the matmul
-parameters plus 6 L T d for causal attention; recomputation not counted)
-over 989 TFLOP/s a card, in %."""
+times the model FLOPs of a token (flops.flops_per_token, counted by the
+model type's family: for gpt2 and mistral 6 x the matmul parameters plus
+6 L T d for causal attention; recomputation not counted) over 989 TFLOP/s
+a card, in %."""
 
 def read(ctx):
     f = ctx["flops"]

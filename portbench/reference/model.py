@@ -1,15 +1,8 @@
-"""Forward and loss of the two model types, plain fp32.
-
-gpt2 (configs/gpt2-medium.json with its `assumed` departures): token
-embedding; per layer RMSNorm (eps from the file), one qkv product, rotary
-embeddings on the two halves of each head, causal softmax attention, the
-out product, RMSNorm, x W_in, GELU (tanh form, "gelu_new"), x W_out, each
-added to the residual; a final RMSNorm and the tied head (the embedding's
-transpose). No biases.
-
-mistral (configs/mistral-7b-v0.3.json): the same skeleton with grouped-query
-attention (kv head h // G serves q head h), a SwiGLU MLP
-(silu(x W_gate) * (x W_up)) W_down, and an untied head.
+"""Forward and loss, plain fp32: the token embedding, the layers, a final
+RMSNorm and the head, with the pieces the model types share (RMSNorm,
+rotary embeddings, blockwise attention, the chunked cross-entropy). A
+model type's layer, head and norm eps are in reference/families/<type>.py,
+found by the configuration's `model_type`.
 
 Memory: each layer runs under a checkpoint (its input is kept, the rest
 recomputed in the backward); attention runs a block of query rows at a
@@ -22,8 +15,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from portbench import spec
 
 SCORE_BYTES = 2 << 30     # fp32 scores of one attention block, at most
 
@@ -43,20 +37,27 @@ def rope(x, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _attn_block(qb, k, v, start):
+def _attn_block(qb, k, v, start, first, window):
     """Rows [start, start + qb.shape[1]) of causal attention: qb [B, n, Hkv,
-    G, Dh] against the keys k, v [B, start + n, Hkv, Dh] they may see."""
+    G, Dh] against the keys k, v [B, m, Hkv, Dh] at positions [first, first
+    + m) they may see; with a window, a row sees itself and the window - 1
+    keys before it."""
     n, Dh = qb.shape[1], qb.shape[-1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qb, k) / math.sqrt(Dh)
     qi = torch.arange(start, start + n, device=qb.device)[:, None]
-    ki = torch.arange(k.shape[1], device=qb.device)[None, :]
-    s = s.masked_fill(ki > qi, float("-inf"))
+    ki = torch.arange(first, first + k.shape[1], device=qb.device)[None, :]
+    masked = ki > qi
+    if window is not None:
+        masked = masked | (ki <= qi - window)
+    s = s.masked_fill(masked, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
 
 
-def attention(q, k, v):
-    """Causal attention, q [B, T, H, Dh], k and v [B, T, Hkv, Dh]."""
+def attention(q, k, v, window=None):
+    """Causal attention, q [B, T, H, Dh], k and v [B, T, Hkv, Dh]; with a
+    window (an int), sliding-window attention: each query sees itself and
+    the window - 1 keys before it."""
     B, T, H, Dh = q.shape
     Hkv = k.shape[2]
     q = q.reshape(B, T, Hkv, H // Hkv, Dh)
@@ -64,8 +65,9 @@ def attention(q, k, v):
     outs = []
     for a in range(0, T, rows):
         b = min(T, a + rows)
-        outs.append(checkpoint(_attn_block, q[:, a:b], k[:, :b], v[:, :b], a,
-                               use_reentrant=False))
+        first = 0 if window is None else max(0, a - window + 1)
+        outs.append(checkpoint(_attn_block, q[:, a:b], k[:, first:b], v[:, first:b], a,
+                               first, window, use_reentrant=False))
     return torch.cat(outs, dim=1).reshape(B, T, H * Dh)
 
 
@@ -85,42 +87,11 @@ def ce_loss(x, head, targets):
     return tot / (B * T)
 
 
-def _gpt_layer(x, p, l, cfg):
-    B, T, d = x.shape
-    H = cfg["n_head"]
-    eps = cfg["layer_norm_epsilon"]
-    theta = cfg["assumed"]["rope_theta"]
-    q, k, v = (rmsnorm(x, p["ln1_g"][l], eps) @ p["attn_qkv"][l]).chunk(3, dim=-1)
-    q = rope(q.reshape(B, T, H, d // H), theta)
-    k = rope(k.reshape(B, T, H, d // H), theta)
-    x = x + attention(q, k, v.reshape(B, T, H, d // H)) @ p["attn_out"][l]
-    h = rmsnorm(x, p["ln2_g"][l], eps)
-    return x + F.gelu(h @ p["mlp_in"][l], approximate="tanh") @ p["mlp_out"][l]
-
-
-def _mistral_layer(x, p, l, cfg):
-    B, T, d = x.shape
-    H, Hkv, Dh = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                  cfg["head_dim"])
-    eps, theta = cfg["rms_norm_eps"], cfg["rope_theta"]
-    h = rmsnorm(x, p["ln1_g"][l], eps)
-    q = rope((h @ p["attn_q"][l]).reshape(B, T, H, Dh), theta)
-    k, v = (h @ p["attn_kv"][l]).chunk(2, dim=-1)
-    k = rope(k.reshape(B, T, Hkv, Dh), theta)
-    x = x + attention(q, k, v.reshape(B, T, Hkv, Dh)) @ p["attn_out"][l]
-    h = rmsnorm(x, p["ln2_g"][l], eps)
-    return x + (F.silu(h @ p["mlp_gate"][l]) * (h @ p["mlp_up"][l])) @ p["mlp_down"][l]
-
-
-def loss(params: dict, tokens, targets, cfg: dict):
+def loss(params: dict, tokens, targets, cfg: dict, here=spec.HERE):
     """Mean next-token cross-entropy of fp32 parameters on tokens [B, T]."""
+    fam = spec.reference_family(cfg["model_type"], here)
     x = params["tok_emb"][tokens]
-    if cfg["model_type"] == "gpt2":
-        layer, L, eps = _gpt_layer, cfg["n_layer"], cfg["layer_norm_epsilon"]
-        head = params["tok_emb"].t()
-    else:
-        layer, L, eps = _mistral_layer, cfg["num_hidden_layers"], cfg["rms_norm_eps"]
-        head = params["head"]
-    for l in range(L):
-        x = checkpoint(layer, x, params, l, cfg, use_reentrant=False)
-    return ce_loss(rmsnorm(x, params["lnf_g"], eps), head, targets)
+    for l in range(fam.n_layer(cfg)):
+        x = checkpoint(fam.layer, x, params, l, cfg, use_reentrant=False)
+    return ce_loss(rmsnorm(x, params["lnf_g"], fam.norm_eps(cfg)), fam.head(params, cfg),
+                   targets)

@@ -47,7 +47,8 @@ def follow(cfg: dict, traffic: dict, seed: int, ranks: list, device,
     B, T, lr = traffic["batch"], traffic["block"], traffic["inner_lr"]
     p0 = weights.init_params(cfg, seed, device)
     params = {n: _keep(t.clone(), store).requires_grad_(True) for n, t in p0.items()}
-    feeds = [weights.Batches(seed, r, B, T, cfg["vocab_size"], device) for r in ranks]
+    feeds = [weights.Batches(seed, r, B, T, cfg["vocab_size"], device,
+                             traffic.get("token_law")) for r in ranks]
     m = {n: torch.zeros_like(t) for n, t in p0.items()}
     v = {n: torch.zeros_like(t) for n, t in p0.items()}
     b1, b2 = BETAS

@@ -1,6 +1,6 @@
-"""Shared pieces of the benchmark's CPU tests: a tiny cell of each model
-type, run end to end on the CPU (master, two peer processes, the
-reference), with the harness's look for a card skipped."""
+"""Shared pieces of the benchmark's CPU tests: the model types found on
+disk, and a tiny cell of each, run end to end on the CPU (master, two peer
+processes, the reference), with the harness's look for a card skipped."""
 
 from __future__ import annotations
 
@@ -10,15 +10,15 @@ import pytest
 
 from portbench import spec
 
-TINY = {
-    "gpt2": {"model_type": "gpt2", "n_layer": 2, "n_embd": 64, "n_head": 4,
-             "vocab_size": 256, "layer_norm_epsilon": 1e-6,
-             "assumed": {"rope_theta": 10000.0}},
-    "mistral": {"model_type": "mistral", "num_hidden_layers": 2, "hidden_size": 64,
-                "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
-                "intermediate_size": 128, "vocab_size": 256, "rope_theta": 1e6,
-                "rms_norm_eps": 1e-6},
-}
+# every model type with a family file; each has a tiny configuration in
+# tests/tiny/<type>.json
+FAMILIES = sorted(p.stem for p in (spec.HERE / "families").glob("*.py")
+                  if not p.name.startswith("_"))
+
+
+def tiny_config(model_type: str) -> dict:
+    """A tiny configuration of the model type, for the CPU."""
+    return spec.load_json(spec.HERE / "tests" / "tiny" / f"{model_type}.json")
 
 
 def tiny_traffic(**over) -> dict:
@@ -37,7 +37,7 @@ def tiny_cell(model_type: str = "gpt2", **traffic) -> spec.Cell:
     limits = json.loads((spec.HERE / "limits" / "gpt2m.diloco.json").read_text())
     limits.update(start_mismatch=0, final_mismatch=0)
     # the end-to-end metrics of a DiLoCo cell of the benchmark
-    return spec.Cell("tiny", 1, dict(TINY[model_type]), tiny_traffic(**traffic), limits,
+    return spec.Cell("tiny", 1, tiny_config(model_type), tiny_traffic(**traffic), limits,
                      [m for m in bench["end_to_end"]
                       if "workloads" not in m or "gpt2m.diloco" in m["workloads"]], [])
 

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from portbench import flops, spec
-from portbench.tests.conftest import TINY, tiny_cell
+from portbench.tests.conftest import FAMILIES, tiny_cell, tiny_config
 
 H100 = "NVIDIA H100 80GB HBM3"
 
@@ -15,16 +15,17 @@ def _reader():
     return spec.metric_reader("outer_copy_roofline")
 
 
-@pytest.mark.parametrize("model_type", ["gpt2", "mistral"])
+@pytest.mark.parametrize("model_type", FAMILIES)
 def test_count_is_the_port_outer_vector(model_type):
     from pccl_tpu_torch.parallel import train
     from pccl_tpu_torch.parallel.diloco import Diloco
 
     from portbench import port
 
-    cfg = port.model_config(TINY[model_type], 32)
+    tiny = tiny_config(model_type)
+    cfg = port.model_config(tiny, 32)
     params = train.family(cfg).init_params(torch.Generator().manual_seed(0), cfg)
-    assert _reader().outer_count(TINY[model_type], 32) == Diloco(None, params).count
+    assert _reader().outer_count(tiny, 32) == Diloco(None, params).count
 
 
 def _ctx(profiles, model_type="gpt2"):
@@ -33,7 +34,7 @@ def _ctx(profiles, model_type="gpt2"):
             "records": [{"outer": [{"profile": p} for p in profiles]}]}
 
 
-@pytest.mark.parametrize("model_type", ["gpt2", "mistral"])
+@pytest.mark.parametrize("model_type", FAMILIES)
 def test_least_times_read_100(model_type):
     reader = _reader()
     cell = tiny_cell(model_type)

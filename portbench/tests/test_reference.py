@@ -1,13 +1,15 @@
 """The plain reference against the port at a tiny size on the CPU, with the
 port computing in float32 (the reference never imports the port; this
-test may). Also: the seed's weight draw against the port's own init."""
+test may), for every model type found on disk. Also: the seed's weight
+draw against the port's own init, the windowed attention against a masked
+softmax, and the reference's families loaded without the port."""
 
 import pytest
 import torch
 
 from portbench import weights
 from portbench.reference import model, train
-from portbench.tests.conftest import TINY, tiny_traffic
+from portbench.tests.conftest import FAMILIES, tiny_config, tiny_traffic
 
 
 def _port_cfg(kind, compute=torch.float32):
@@ -15,14 +17,14 @@ def _port_cfg(kind, compute=torch.float32):
 
     from portbench import port
 
-    return dataclasses.replace(port.model_config(TINY[kind], 32), compute_dtype=compute)
+    return dataclasses.replace(port.model_config(tiny_config(kind), 32), compute_dtype=compute)
 
 
-@pytest.mark.parametrize("kind", ["gpt2", "mistral"])
+@pytest.mark.parametrize("kind", FAMILIES)
 def test_loss_and_grad_match_port(kind):
     from pccl_tpu_torch.parallel import train as port_train
 
-    cfg = TINY[kind]
+    cfg = tiny_config(kind)
     params = weights.init_params(cfg, 11, "cpu")
     tok, tgt = weights.Batches(11, 0, 2, 32, cfg["vocab_size"], "cpu").next()
     ref_p = {n: t.clone().requires_grad_(True) for n, t in params.items()}
@@ -38,7 +40,7 @@ def test_loss_and_grad_match_port(kind):
         assert torch.allclose(port_p[n].grad, ref_p[n].grad, rtol=1e-4, atol=1e-5 * scale), n
 
 
-@pytest.mark.parametrize("kind", ["gpt2", "mistral"])
+@pytest.mark.parametrize("kind", FAMILIES)
 def test_follow_matches_port_steps(kind):
     """Three AdamW steps: the reference's per-leaf norms against the
     port's train step in float32."""
@@ -46,7 +48,7 @@ def test_follow_matches_port_steps(kind):
 
     from portbench import probes
 
-    cfg, tr = TINY[kind], tiny_traffic()
+    cfg, tr = tiny_config(kind), tiny_traffic()
     ref = train.follow(cfg, tr, 5, [1], "cpu", 3)
     pcfg = _port_cfg(kind)
     state = port_train.make_train_state(0, pcfg, "cpu", lr=tr["inner_lr"],
@@ -66,7 +68,7 @@ def test_follow_matches_port_steps(kind):
         assert change == pytest.approx(ref["update_norms"][n], rel=1e-3)
 
 
-@pytest.mark.parametrize("kind", ["gpt2", "mistral"])
+@pytest.mark.parametrize("kind", FAMILIES)
 def test_weight_draw_scales_match_port_init(kind):
     """Each leaf's std and mean of the seed's draw against the port's
     init_params at a tiny width (the draw on the card uses the same code
@@ -75,7 +77,7 @@ def test_weight_draw_scales_match_port_init(kind):
 
     from portbench import port
 
-    cfg = dict(TINY[kind])
+    cfg = tiny_config(kind)
     ours = weights.init_params(cfg, 3, "cpu")
     theirs = port_train.family(port.model_config(cfg, 32)).init_params(
         torch.Generator().manual_seed(3), port.model_config(cfg, 32))
@@ -129,3 +131,48 @@ def test_outer_steps_match_port_diloco():
         outer, mom = train.outer_step(outer, [inner], 0.7, 0.9, mom=mom)
         for n in params:
             assert torch.allclose(params[n], outer[n], rtol=1e-6, atol=1e-6), n
+
+
+@pytest.mark.parametrize("T,window", [(32, None), (32, 1), (32, 7), (40, 16), (32, 32), (32, 99)])
+def test_attention_window_is_the_masked_softmax(T, window, monkeypatch):
+    """The blockwise reference attention, in blocks of 8 rows (keys cut to
+    the window), against one softmax over the whole masked [T, T] scores."""
+    g = torch.Generator().manual_seed(T + (window or 0))
+    q = torch.randn(2, T, 4, 8, generator=g, dtype=torch.float64)
+    k, v = (torch.randn(2, T, 2, 8, generator=g, dtype=torch.float64) for _ in range(2))
+    monkeypatch.setattr(model, "SCORE_BYTES", 4 * 2 * 4 * T * 8)
+    got = model.attention(q, k, v, window)
+    qi, ki = torch.arange(T)[:, None], torch.arange(T)[None, :]
+    seen = (ki <= qi) & ((ki > qi - window) if window else True)
+    kk, vv = k.repeat_interleave(2, dim=2), v.repeat_interleave(2, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) / 8 ** 0.5
+    p = torch.softmax(s.masked_fill(~seen, float("-inf")), dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, vv).reshape(2, T, 32)
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_reference_families_load_no_port():
+    """Every reference family, loaded and run in a fresh process, loads
+    neither the port nor JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    from portbench import spec
+
+    code = (
+        "import sys\n"
+        "from portbench import spec, weights\n"
+        "from portbench.guard import forbidden_modules\n"
+        "from portbench.reference import model\n"
+        "for t in sys.argv[1:]:\n"
+        "    spec.reference_family(t)\n"
+        "    cfg = spec.load_json(spec.HERE / 'tests' / 'tiny' / f'{t}.json')\n"
+        "    tok, tgt = weights.Batches(1, 0, 1, 8, cfg['vocab_size'], 'cpu').next()\n"
+        "    model.loss(weights.init_params(cfg, 1, 'cpu'), tok, tgt, cfg)\n"
+        "bad = forbidden_modules(sys.modules)\n"
+        "bad += sorted(n for n in sys.modules if n.split('.')[0] == 'pccl_tpu_torch')\n"
+        "print(','.join(bad))\n")
+    p = subprocess.run([sys.executable, "-c", code, *FAMILIES], capture_output=True,
+                       text=True, cwd=spec.ROOT, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "", p.stdout
