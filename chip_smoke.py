@@ -44,6 +44,10 @@ Phases, in order; any failure exits non-zero:
    entries of a GPT-2 sync, the plain version, the bound, a one-read
    yardstick (half the time of a copy_ of the same bytes) beside an int32
    sum over them, and the host's cost of the 8-byte readbacks;
+3c. moe_gemm: the experts' grouped GEMM (csrc/moe_gemm.cu: fwd, dx, dw)
+   against its plain loops at the expert layer of the benchmark's cell
+   lfm2moe.diloco.8k, timed beside a padded torch.bmm and its least time,
+   and its launches in one LFM2 train step at that shape (phase_moe_gemm);
 4. model: a 2-layer GPT at GPT-2 widths in bf16 on the card, flash kernels
    against dense attention (loss and gradients);
 5. main path, sync DiLoCo: a master and two peers (GPT-2 124M, B=8, T=1024,
@@ -283,6 +287,10 @@ KERNELS = [
     ("simplehash_tpu", "pccl_tpu_torch/csrc/simplehash_tpu.cu",
      "pccl_tpu/ops/hashing.py:241", r"simplehash_tpu_(planes|fold)", 2, False),
 ]
+# the same for the experts' grouped GEMM (its three variants), which only
+# the LFM2 model launches and which replaces no TPU kernel: the JAX package
+# has no dropless expert layer
+MOE_GEMM = ("moe_gemm", "pccl_tpu_torch/csrc/moe_gemm.cu", None, r"grouped_gemm", 3, False)
 FLASH = [k[0] for k in KERNELS[:3]]
 
 
@@ -451,7 +459,7 @@ def phase_build() -> None:
     spilled = spills(report)
     cuobjdump = shutil.which("cuobjdump") \
         or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for name, source, _, fn, builds, wgmma in KERNELS:
+    for name, source, _, fn, builds, wgmma in (*KERNELS, MOE_GEMM):
         entries = {e: sp for e, sp in spilled.items() if re.search(fn, e)}
         if len(entries) != builds:
             raise SmokeError(f"ptxas reported {len(entries)} builds of {fn}, "
@@ -883,6 +891,131 @@ def phase_hash() -> dict:
     del tok_emb, cases, entries, kernel, plain, flip, copy_dst
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------------ phase 3c
+
+def _moe_gemm_shape(tag, x, w, dy, offsets, calls) -> dict:
+    """The three variants at one product's shape against their plain loops
+    (fwd and dx within 2^-7 of the largest value, one bf16 step where the
+    two sum in other orders; dw, fp32, within 1e-4), a tile left out of
+    the busiest segment (dw: its matrix) failing that check; the times of
+    the kernel, the plain loop (host clock: it reads the offsets) and
+    torch.bmm over the segments padded to the busiest (padded outside the
+    timed call), and the least time from calls (variant -> FLOPs, bytes)."""
+    import torch
+
+    from pccl_tpu_torch.ops import moe_gemm as mg
+
+    E, K, N = w.shape
+    bounds = offsets.tolist()
+    segs = [(e, a, b) for e, (a, b) in enumerate(zip(bounds, bounds[1:]))]
+    busiest, a0, b0 = max(segs, key=lambda s: s[2] - s[1])
+    xp, dyp = x.new_zeros(E, b0 - a0, K), dy.new_zeros(E, b0 - a0, N)
+    for e, a, b in segs:
+        xp[e, :b - a], dyp[e, :b - a] = x[a:b], dy[a:b]
+    fns = {"moe_gemm_fwd": (lambda: mg.grouped_mm_fwd(x, w, offsets),
+                            lambda: mg.grouped_mm_plain(x, w, offsets),
+                            lambda: torch.bmm(xp, w), 2 ** -7),
+           "moe_gemm_dx": (lambda: mg.grouped_mm_dx(dy, w, offsets),
+                           lambda: mg.grouped_mm_dx_plain(dy, w, offsets),
+                           lambda: torch.bmm(dyp, w.transpose(1, 2)), 2 ** -7),
+           "moe_gemm_dw": (lambda: mg.grouped_mm_dw(x, dy, offsets),
+                           lambda: mg.grouped_mm_dw_plain(x, dy, offsets),
+                           lambda: torch.bmm(xp.transpose(1, 2), dyp), 1e-4)}
+    out = {}
+    for variant, (kernel, plain, library, rel) in fns.items():
+        got, want = kernel(), plain()
+        limit = rel * float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        if variant == "moe_gemm_dw":
+            got[busiest] = 0
+        else:
+            got[a0:a0 + 128] = 0
+        if float((got.float() - want.float()).abs().max()) <= limit:
+            raise SmokeError(f"{variant} @ {tag}: the check passes a tile left out")
+        del got, want
+        flops, nbytes = calls[variant]
+        r = out[variant] = {
+            "max_abs_err": err, "ms": cuda_ms(kernel), "plain_ms": synced_ms(plain, calls=2),
+            "bound_ms": max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": "ops" if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            "library_ms": cuda_ms(library), "ok": err <= limit}
+        log(f"  {variant} @ {tag} [S {x.shape[0]}, K {K}, N {N}]: max abs err "
+            f"{err:.3e}{'' if r['ok'] else '  FAIL'}; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bmm padded to {b0 - a0} rows "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+def phase_moe_gemm() -> dict:
+    """Phase 3c at the expert layer of the benchmark's cell
+    lfm2moe.diloco.8k (its config, traffic and token law from portbench):
+    the slots of B x T Zipf-drawn ids routed straight from a random
+    embedding (top 4 of 32: busier experts than at the cell's first step,
+    whose routing follows two dense layers), each variant at the gate-up
+    product [d, 2f] and the down product [f, d]; then one train step at
+    the cell's shape through build_train_step with flash_attention, whose
+    grouped-GEMM launches, counted from zero, must be 2 a variant an
+    expert layer and whose expert loads must sum to every slot."""
+    import torch
+
+    from pccl_tpu_torch.ops import flash_attention as fa
+    from pccl_tpu_torch.ops import moe, moe_gemm
+    from pccl_tpu_torch.parallel import train
+    from portbench import spec
+
+    dev = torch.device("cuda")
+    config = json.loads((REPO / "portbench/configs/lfm2-8b-a1b.json").read_text())
+    traffic = json.loads((REPO / "portbench/traffic/diloco.1p.b2.t8192.h32.zipf.json")
+                         .read_text())
+    B, T = traffic["batch"], traffic["block"]
+    fam, zipf = spec.family(config["model_type"]), spec.token_law(traffic["token_law"])
+    cfg = fam.port_config(config, T)
+    d, E, f, k, V = cfg.n_embd, cfg.n_experts, cfg.expert_dim, cfg.top_k, cfg.vocab_size
+    calls = fam.moe_gemm_calls(config, B, T)   # variant -> [gate-up, down]
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    h = torch.randn(V, d, generator=gen, device=dev).bfloat16()[zipf.draw(gen, (B * T,), V, dev)]
+    router = torch.randn(d, E, generator=gen, device=dev) * d ** -0.5
+    counts = torch.bincount(moe.route_topk(h, router, torch.zeros(E, device=dev), k)[0]
+                            .reshape(-1), minlength=E)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    S = int(offsets[-1])
+    log(f"moe_gemm: {S} slots over {E} experts, {int(counts.min())} to "
+        f"{int(counts.max())} an expert")
+    del h, router
+    res = {v: {} for v in moe_gemm.launches}
+    for i, (tag, K, N) in enumerate((("gate_up", d, 2 * f), ("down", f, d))):
+        x = torch.randn(S, K, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5).bfloat16()
+        dy = torch.randn(S, N, generator=gen, device=dev).bfloat16()
+        for v, r in _moe_gemm_shape(tag, x, w, dy, offsets,
+                                    {v: c[i] for v, c in calls.items()}).items():
+            res[v][tag] = r
+        del x, w, dy
+        torch.cuda.empty_cache()
+
+    state = train.make_train_state(0, cfg, device=dev)
+    step = train.build_train_step(cfg, attn_fn=fa.flash_attention,
+                                  remat=traffic["remat"], loss_chunk=traffic["loss_chunk"])
+    tokens = zipf.draw(gen, (B, T + 1), V, dev)
+    moe.reset_stats()   # the grouped GEMM's launches too
+    loss = float(step(state, tokens[:, :-1], tokens[:, 1:]))
+    st, Lm = moe.stats(), cfg.n_moe_layers
+    log(f"moe_gemm: one train step, loss {loss:.4f}, launches {st['launches']}, "
+        f"busiest expert over the mean by layer {st['max_over_mean']}")
+    del state, step, tokens
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss) or st["launches"] != {v: 2 * Lm for v in moe_gemm.launches}:
+        raise SmokeError(f"the LFM2 train step: loss {loss}, launches {st['launches']}, "
+                         f"not 2 a variant in each of its {Lm} expert layers")
+    if len(st["loads"]) != Lm or any(sum(c) != B * T * k for c in st["loads"].values()):
+        raise SmokeError(f"expert loads {st['loads']} are not {B * T * k} slots in "
+                         f"each of {Lm} layers")
+    bad = [f"{v} @ {tag}" for v, r in res.items() for tag, x in r.items() if not x["ok"]]
+    if bad:
+        raise SmokeError(f"the grouped GEMM disagrees with its plain loop: {bad}")
+    return {"rows": res, "launches": st["launches"]}
 
 
 def cosine(a, b) -> float:
@@ -3287,6 +3420,7 @@ def main() -> int:
     kres = timed("kernels", phase_kernels)
     lres = timed("with_lse", phase_with_lse)
     hres = timed("hash", phase_hash)
+    mres = timed("moe_gemm", phase_moe_gemm)
     timed("model", phase_model)
     # each main path runs in its peer processes, whose counts start at 0;
     # the comparisons above do not count
@@ -3329,7 +3463,6 @@ def main() -> int:
     paths = (main_path, ddp, async_path, remat, resume, ddp_resume, grid, comm, sp,
              tp, pp, ddp_tp, mesh, examples, soak, bench)
 
-    m, ll = kres["main"], kres["llama700m"]
     out_names = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                  "flash_bwd_dkv": ("dk", "dv")}
     kernels = []
@@ -3345,26 +3478,10 @@ def main() -> int:
                     "bound_ms": r["bounds"][name][0], "bound_by": r["bounds"][name][1],
                     "library_ms": r["library_ms"][name]}
 
-            # times at the GPT-2 paths' shape, and at phase 7's and phase
-            # 13's non-causal ring step beside them
-            row.update(at(m))
-            row["llama700m"] = at(ll)
-            row["sp"] = at(kres["sp"])
-            # and at phase 14's tp ranks' shapes
-            row["tp"] = at(kres["tp"])
-            row["tp_gpt"] = at(kres["tp_gpt"])
-            # and at phase 15's pipeline stages'
-            row["pp"] = at(kres["pp"])
-            # and at phase 18a's Llama-700m peer of 2 tp ranks
-            row["tp2_llama"] = at(kres["tp2_llama"])
-            # and at phase 19's examples' defaults (Dh 16 and 32, padded)
-            row["nano"] = at(kres["nano"])
-            row["tiny_gqa"] = at(kres["tiny_gqa"])
-            # and at phase 21's bench shapes: model_bench's batches, and the
-            # long-context legs at T=8192 and 32768
-            for tag in ("bench_gpt", "bench_llama", "long_gpt", "long_llama",
-                        "long32k"):
-                row[tag] = at(kres[tag])
+            # times at the GPT-2 paths' shape, and beside them at each
+            # other shape of phase 3 (SHAPES names the phase that runs it)
+            row.update(at(kres["main"]))
+            row.update({tag: at(r) for tag, r in kres.items() if tag != "main"})
             # through flash_attention_with_lse with an lse cotangent (3a)
             row["with_lse_max_abs_err"] = max(
                 e[o]["max_abs"] for e in lres.values() for o in out_names[name])
@@ -3376,6 +3493,13 @@ def main() -> int:
                         "bound_by": "bytes", "library_ms": None,
                         "ok": hres["max_abs_err"] == 0})
         kernels.append(row)
+    # the grouped GEMM, a row a variant: times at the gate-up product, the
+    # down product's beside them; launches in phase 3c's train step
+    for variant, r in mres["rows"].items():
+        kernels.append({"name": variant, "route": "cuda", "source": MOE_GEMM[1],
+                        "replaces": MOE_GEMM[2], "launches": mres["launches"][variant],
+                        **r["gate_up"], "down": r["down"],
+                        "ok": r["gate_up"]["ok"] and r["down"]["ok"]})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -6,8 +6,9 @@ tensors stacked over a leading [n_layer] dim, and `x @ W` weights laid out
 
 Numerics follow pccl_tpu/models/gpt.py: parameters in fp32, compute in
 `compute_dtype` (bf16 by default); RMSNorm in fp32 with eps 1e-6 inside the
-rsqrt; rotary embeddings on two halves of the head dim (not interleaved),
-with cos and sin cast to the compute dtype; GELU with the tanh
+rsqrt (`_rmsnorm`'s default; models/lfm2.py passes its own); rotary
+embeddings on two halves of the head dim (not interleaved), with cos and
+sin cast to the compute dtype; GELU with the tanh
 approximation (jax.nn.gelu's default); the tied head with compute-dtype
 operands and an fp32 result.
 
@@ -105,9 +106,9 @@ def init_params(generator: torch.Generator, cfg: GPTConfig) -> Dict[str, torch.T
     return params
 
 
-def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * gain).to(x.dtype)
 
 
@@ -192,11 +193,13 @@ def forward(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
-            pos_offset: int = 0, tp=None) -> torch.Tensor:
+            pos_offset: int = 0, tp=None, profiler=None) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
     divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank, chunked or not."""
+    vocab-parallel and the same on every rank, chunked or not. profiler
+    is taken for the families that record sections of their own; this one
+    records none."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")

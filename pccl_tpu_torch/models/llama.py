@@ -128,14 +128,15 @@ def _attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
-           pos_offset=0, tp=None):
-    """One block on this rank's heads (all of them without a tp group),
-    with `layer` its slices of the stacked leaves (layer_views): H and Hkv
-    follow from the local q and kv widths."""
-    B, T, _ = x.shape
+def _attn(h, layer: Dict[str, torch.Tensor], cfg, attn_fn=None, pos_offset=0,
+          tp=None, qk_norm=None):
+    """The attention of a block on this rank's heads, from the normed h:
+    the q and kv products, rotary embeddings, attn_fn, the out product. H
+    and Hkv follow from the local q and kv widths. qk_norm (q gain, k gain,
+    eps) RMS-normalises each head of q and k over Dh before the rotary
+    embeddings (models/lfm2.py)."""
+    B, T, _ = h.shape
     Dh = cfg.head_dim
-    h = _rmsnorm(x, layer["ln1_g"])
     h_in = column_input(h, tp)
     q = column(h_in, layer["attn_q"], h.dtype, tp)
     H = q.shape[-1] // Dh
@@ -143,16 +144,31 @@ def _block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
     k, v = column(h_in, layer["attn_kv"], h.dtype, tp,
                   w_sum=kv_grad_sum(cfg, tp)).chunk(2, dim=-1)
     Hkv = k.shape[-1] // Dh
+    k = k.reshape(B, T, Hkv, Dh)
+    if qk_norm is not None:
+        q_gain, k_gain, eps = qk_norm
+        q, k = _rmsnorm(q, q_gain, eps), _rmsnorm(k, k_gain, eps)
     q = _rope(q, cfg.rope_theta, pos_offset)
-    k = _rope(k.reshape(B, T, Hkv, Dh), cfg.rope_theta, pos_offset)
+    k = _rope(k, cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, Hkv, Dh)
     att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
-    x = x + row_parallel(att, layer["attn_out"], tp)
-    h = _rmsnorm(x, layer["ln2_g"])
+    return row_parallel(att, layer["attn_out"], tp)
+
+
+def _swiglu(h, gate, up, down, tp=None):
+    """(silu(h W_gate) * h W_up) W_down on this rank's columns."""
     h_in = column_input(h, tp)
-    gated = F.silu(column(h_in, layer["mlp_gate"], h.dtype, tp)) \
-        * column(h_in, layer["mlp_up"], h.dtype, tp)
-    return x + row_parallel(gated, layer["mlp_down"], tp)
+    gated = F.silu(column(h_in, gate, h.dtype, tp)) * column(h_in, up, h.dtype, tp)
+    return row_parallel(gated, down, tp)
+
+
+def _block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
+           pos_offset=0, tp=None):
+    """One block on this rank's heads (all of them without a tp group),
+    with `layer` its slices of the stacked leaves (layer_views)."""
+    x = x + _attn(_rmsnorm(x, layer["ln1_g"]), layer, cfg, attn_fn, pos_offset, tp)
+    return x + _swiglu(_rmsnorm(x, layer["ln2_g"]), layer["mlp_gate"],
+                       layer["mlp_up"], layer["mlp_down"], tp)
 
 
 def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
@@ -180,11 +196,13 @@ def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
-            pos_offset: int = 0, tp=None) -> torch.Tensor:
+            pos_offset: int = 0, tp=None, profiler=None) -> torch.Tensor:
     """Mean next-token cross-entropy. loss_chunk computes the head and the
     loss in checkpointed sequence chunks (models/_common.py) and must
     divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank, chunked or not."""
+    vocab-parallel and the same on every rank, chunked or not. profiler
+    is taken for the families that record sections of their own; this one
+    records none."""
     T = targets.shape[1]
     if loss_chunk and T % loss_chunk:
         raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")

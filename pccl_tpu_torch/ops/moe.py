@@ -1,7 +1,8 @@
-"""Mixture-of-Experts with expert parallelism over a mesh axis
-(pccl_tpu/ops/moe.py).
+"""Mixture-of-Experts: top-1 routing with expert parallelism over a mesh
+axis (pccl_tpu/ops/moe.py), and a dropless top-k expert layer on one rank
+(moe_topk, models/lfm2.py's expert FFN; the JAX package has none).
 
-Switch-style top-1 routing with Mesh-TensorFlow's dispatch algebra:
+Top-1 EP: Switch-style top-1 routing with Mesh-TensorFlow's dispatch algebra:
 - tokens are split over the `ep` axis (their batch rows), and the stacked
   expert FFN weights over the same axis (E/S experts a rank);
 - each rank routes its own tokens: the top-1 expert, its gate
@@ -15,10 +16,29 @@ Switch-style top-1 routing with Mesh-TensorFlow's dispatch algebra:
 The routing and the FFN are torch ops, as they are jnp in the JAX package,
 which has no Pallas kernel here. The gate is replicated over the axis, so
 its gradient sums over the ranks (copy_to).
+
+Dropless top-k (moe_topk): router logits in fp32 from the normed h, scores
+s = sigmoid(logits); each token's k experts are the top k of s + bias (the
+bias, a buffer, enters the choice only); their weights are the chosen s,
+renormalised to sum to one with norm_topk_prob, times `scale`. The n·k
+slots are sorted by expert on the device and their rows gathered, each
+expert's rows one segment (offsets from a device cumsum of the counts);
+the experts' SwiGLU runs as two grouped products over the segments
+(ops/moe_gemm.py: the gate and up columns as one [d, 2f] product, then the
+down product), and the slots are added back to their tokens with their
+weights in fp32 (index_add). Every token reaches all k experts, whatever
+the load; nothing in the layer waits for the card (no .item(), no host
+copy, no shape that depends on the routing).
+
+Counters: moe_topk adds each layer's slots routed to each expert into a
+device tensor (no sync); stats() reads them with the grouped products'
+launches. Sections `moe.route`, `moe.experts` and `moe.combine` go to the
+profiler moe_topk is given (utils/profiler.Profiler).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
@@ -26,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import all_to_all, copy_to
+from . import moe_gemm
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
@@ -134,3 +155,74 @@ def moe_mlp_ep(x_local: torch.Tensor, params_local: Dict[str, torch.Tensor],
     back = all_to_all(y.float(), group).reshape(E, C, d)
     out = torch.einsum("nec,ecd->nd", dispatch, back)
     return (out * p[:, None]).reshape(b, t, d).to(x_local.dtype)
+
+
+# ------------------------------------------------------------ dropless top-k
+
+# layer -> slots routed to each expert [E] int64 on the device, summed over
+# the forward passes since reset_stats() (a checkpointed layer's recompute
+# counts again)
+_LOADS: Dict[int, torch.Tensor] = {}
+
+
+def reset_stats() -> None:
+    _LOADS.clear()
+    moe_gemm.reset_launch_counts()
+
+
+def stats() -> dict:
+    """{"loads": {layer: [slots of each expert]}, "max_over_mean": {layer:
+    the busiest expert's slots over the mean}, "launches": the grouped
+    products' launches}. Reads the device counters (a sync)."""
+    loads = {l: c.tolist() for l, c in sorted(_LOADS.items())}
+    imbalance = {l: max(c) * len(c) / max(1, sum(c)) for l, c in loads.items()}
+    return {"loads": loads, "max_over_mean": imbalance,
+            "launches": dict(moe_gemm.launches)}
+
+
+def route_topk(h: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, k: int,
+               norm_topk_prob: bool = True, scale: float = 1.0):
+    """h [n, d] -> (experts [n, k] int64, weights [n, k] fp32): the top k
+    of sigmoid(h @ router) + bias, weighted by their scores (renormalised
+    with norm_topk_prob) times scale. The logits are fp32."""
+    scores = torch.sigmoid(h.float() @ router)
+    experts = torch.topk(scores.detach() + bias, k, dim=-1).indices
+    weights = scores.gather(-1, experts)
+    if norm_topk_prob:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    return experts, weights * scale
+
+
+def moe_topk(h: torch.Tensor, router: torch.Tensor, gate_up: torch.Tensor,
+             down: torch.Tensor, bias: torch.Tensor, *, k: int,
+             norm_topk_prob: bool = True, scale: float = 1.0, layer=None,
+             profiler=None) -> torch.Tensor:
+    """The dropless top-k SwiGLU expert layer of h [B, T, d] in h's dtype
+    (see the module's docstring): router [d, E] fp32, gate_up [E, d, 2f]
+    (gate columns, then up), down [E, f, d], bias [E] (not trained).
+    layer: the key of its load counter (None counts nothing)."""
+    section = (lambda name: contextlib.nullcontext()) if profiler is None \
+        else profiler.section
+    B, T, d = h.shape
+    E = router.shape[-1]
+    x = h.reshape(B * T, d)
+    with section("moe.route"):
+        experts, weights = route_topk(x, router, bias, k, norm_topk_prob, scale)
+        flat = experts.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        token_of_slot = order // k
+        counts = torch.zeros(E, dtype=torch.int64, device=h.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+        if layer is not None:
+            _LOADS[layer] = _LOADS[layer] + counts if layer in _LOADS else counts
+        rows = torch.index_select(x, 0, token_of_slot)
+    with section("moe.experts"):
+        gate, up = moe_gemm.grouped_mm(rows, gate_up, offsets).chunk(2, dim=-1)
+        y = moe_gemm.grouped_mm(F.silu(gate) * up, down, offsets)
+    with section("moe.combine"):
+        # y in h's dtype times the fp32 weight: an fp32 product, added in fp32
+        slot_w = weights.reshape(-1)[order]
+        out = torch.zeros(B * T, d, dtype=torch.float32, device=h.device).index_add(
+            0, token_of_slot, y * slot_w[:, None])
+    return out.to(h.dtype).reshape(B, T, d)

@@ -107,6 +107,10 @@ def build_pipelined_forward(cfg: gpt.GPTConfig, mesh, *, axis: str = "pp",
     in fp32, x.float() @ tok_emb.T.float(), the JAX pipeline's own (not
     gpt.forward's compute-dtype operands); untie_head is ignored, as in
     JAX."""
+    if not isinstance(cfg, gpt.GPTConfig):
+        raise TypeError(f"the pipeline runs GPT blocks; {type(cfg).__name__} is "
+                        "not a GPTConfig")
+
     def forward(params, tokens):
         x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
         layers = {k: params[k] for k in gpt._LAYER_KEYS}

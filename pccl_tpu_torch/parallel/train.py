@@ -1,5 +1,5 @@
-"""The inner train step: AdamW over a model's parameter dict (GPT or
-Llama, dispatched on the config's family by `family`).
+"""The inner train step: AdamW over a model's parameter dict (GPT, Llama
+or LFM2, dispatched on the config's family by `family`).
 
 Matches pccl_tpu/parallel/train.py on one device: `optax.adamw(lr, b1=0.9,
 b2=0.95, weight_decay=0.1)` (eps 1e-8, no mask, so the gains and the
@@ -40,7 +40,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .._device import resolve_device
-from ..models import gpt, llama
+from ..models import gpt, lfm2, llama
 from .codec import build_codec
 from .hierarchical import local_mean
 from .mesh import local_batch
@@ -48,16 +48,22 @@ from .mesh import local_batch
 
 def family(cfg):
     """The model module of a config's family: models.llama for a
-    LlamaConfig, else models.gpt (the JAX package's train.family, without
-    the sharding rules)."""
-    return llama if isinstance(cfg, llama.LlamaConfig) else gpt
+    LlamaConfig, models.lfm2 for an Lfm2MoeConfig, else models.gpt (the JAX
+    package's train.family, without the sharding rules)."""
+    if isinstance(cfg, llama.LlamaConfig):
+        return llama
+    return lfm2 if isinstance(cfg, lfm2.Lfm2MoeConfig) else gpt
 
 
 @dataclasses.dataclass
 class TrainState:
+    """buffers: tensors the model reads that no optimizer trains and no
+    outer step carries (LFM2's expert bias), passed to its loss_fn by
+    name."""
     params: Dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None
+    buffers: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def cosine_warmup_schedule(lr: float, total_steps: int, warmup_steps: int = 0,
@@ -115,7 +121,9 @@ def make_train_state(seed: int, cfg, device="cuda",
             raise ValueError("a schedule needs lr > 0 (it scales the base lr)")
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda count: schedule(count) / lr)
-    return TrainState(params, opt, sched)
+    init_buffers = getattr(family(cfg), "init_buffers", None)
+    buffers = {} if init_buffers is None else init_buffers(cfg, dev)
+    return TrainState(params, opt, sched, buffers)
 
 
 def accum_value_and_grad(base_lg, accum_steps: int):
@@ -197,6 +205,10 @@ def build_loss_and_grad(cfg, attn_fn=None, remat=False,
     parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh,
     seq_axis and profiler as in build_train_step."""
     model = family(cfg)
+    if getattr(model, "ONE_RANK", False) and mesh is not None and (
+            mesh.shape.get("tp", 1) > 1 or seq_axis is not None):
+        raise ValueError(f"{model.__name__} runs on one rank: no tensor or "
+                         "sequence parallelism")
     shards = tp_shards(cfg, mesh)
     tp = None if shards is None else shards.group
     section = _sections(profiler)
@@ -205,7 +217,8 @@ def build_loss_and_grad(cfg, attn_fn=None, remat=False,
         def micro(state: TrainState, tokens, targets):
             with section("train.forward"):
                 loss = model.loss_fn(state.params, tokens, targets, cfg, attn_fn,
-                                     remat, loss_chunk, pos_offset, tp=tp)
+                                     remat, loss_chunk, pos_offset, tp=tp,
+                                     profiler=profiler, **state.buffers)
             with section("train.backward"):
                 loss.backward()
             return loss.detach()
