@@ -287,10 +287,10 @@ KERNELS = [
     ("simplehash_tpu", "pccl_tpu_torch/csrc/simplehash_tpu.cu",
      "pccl_tpu/ops/hashing.py:241", r"simplehash_tpu_(planes|fold)", 2, False),
 ]
-# the same for the experts' grouped GEMM (its three variants), which only
-# the LFM2 model launches and which replaces no TPU kernel: the JAX package
-# has no dropless expert layer
-MOE_GEMM = ("moe_gemm", "pccl_tpu_torch/csrc/moe_gemm.cu", None, r"grouped_gemm", 3, False)
+# the same for the experts' grouped GEMM (its three variants, on wgmma and
+# TMA), which only the LFM2 model launches and which replaces no TPU kernel:
+# the JAX package has no dropless expert layer
+MOE_GEMM = ("moe_gemm", "pccl_tpu_torch/csrc/moe_gemm.cu", None, r"grouped_gemm", 3, True)
 FLASH = [k[0] for k in KERNELS[:3]]
 
 

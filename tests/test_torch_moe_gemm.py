@@ -1,9 +1,11 @@
 """The experts' grouped GEMM (csrc/moe_gemm.cu through ops/moe_gemm.py) on
 the card against its plain versions (a loop of fp32 products over the
 segments, on the same bf16 inputs), and the dropless layer that calls it:
-uneven segments, empty experts, one expert taking every row, columns and
-depths that are not multiples of the kernel's tiles, and the model's own
-widths. Card only: each test skips without CUDA (decided in the fixture).
+uneven segments, empty experts, one expert taking every row, segments of
+exactly one and two tiles, columns and depths that are not multiples of the
+kernel's tiles, and the model's own widths; rows past a segment's end that
+must count for nothing; two calls bit-equal. Card only: each test skips
+without CUDA (decided in the fixture).
 
 Tolerances: the kernel and the plain version sum the same bf16 products in
 fp32 in different orders (about 1e-6 relative), and fwd and dx then round
@@ -24,6 +26,11 @@ CASES = [
     ("uneven", [0, 1, 127, 128, 129, 300, 0, 513], 256, 384),
     ("one_takes_all", [0] * 5 + [1000] + [0] * 26, 128, 256),
     ("ragged_edges", [3, 0, 70, 200], 40, 24),
+    # segments of exactly one and two tiles: 64 and 128 rows are one and two
+    # depth tiles of dw, 128 and 256 rows one and two row tiles of fwd and dx
+    ("whole_tiles", [64, 128, 128, 256], 128, 256),
+    # N (fwd, dw) and K (dx) not multiples of the 256-wide tile, nor of 64
+    ("partial_width", [300, 0, 77, 129], 200, 136),
     ("gate_up", None, 2048, 3584),
     ("down", None, 1792, 2048),
 ]
@@ -77,6 +84,43 @@ def test_three_variants_match_the_plain_loop(card, name, counts, K, N):
     for e, n in enumerate((offsets[1:] - offsets[:-1]).tolist()):
         if n == 0:
             assert not dw[e].any()
+
+
+@pytest.mark.cuda
+def test_rows_past_a_segment_count_for_nothing(card):
+    """Each segment of fwd, dx and dw against its own plain product, held to
+    its own largest value, where the next segment's rows are 2^10 times
+    larger: a row tile of fwd or dx and the last depth tile of dw that run
+    past a segment's end read those rows, which must neither be stored over
+    (fwd, dx) nor be added (dw)."""
+    counts = [70, 200, 5, 130]
+    x, w, dy, offsets = _inputs(counts, 256, 512, card)
+    bounds = offsets.tolist()
+    x[bounds[1]:bounds[2]] *= 1024
+    dy[bounds[1]:bounds[2]] *= 1024
+    got = (moe_gemm.grouped_mm_fwd(x, w, offsets), moe_gemm.grouped_mm_dx(dy, w, offsets),
+           moe_gemm.grouped_mm_dw(x, dy, offsets))
+    want = (moe_gemm.grouped_mm_plain(x, w, offsets),
+            moe_gemm.grouped_mm_dx_plain(dy, w, offsets),
+            moe_gemm.grouped_mm_dw_plain(x, dy, offsets))
+    torch.cuda.synchronize()
+    for e, (a, b) in enumerate(zip(bounds, bounds[1:])):
+        _close_bf16(got[0][a:b], want[0][a:b])
+        _close_bf16(got[1][a:b], want[1][a:b])
+        scale = float(want[2][e].abs().max())
+        assert float((got[2][e] - want[2][e]).abs().max()) <= 1e-4 * scale, e
+
+
+@pytest.mark.cuda
+def test_two_calls_are_bit_equal(card):
+    """No atomics and no split depth: the same inputs give the same bits."""
+    x, w, dy, offsets = _inputs(None, 2048, 3584, card)
+    first = (moe_gemm.grouped_mm_fwd(x, w, offsets), moe_gemm.grouped_mm_dx(dy, w, offsets),
+             moe_gemm.grouped_mm_dw(x, dy, offsets))
+    second = (moe_gemm.grouped_mm_fwd(x, w, offsets), moe_gemm.grouped_mm_dx(dy, w, offsets),
+              moe_gemm.grouped_mm_dw(x, dy, offsets))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
