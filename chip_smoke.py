@@ -257,7 +257,6 @@ import os
 import re
 import shutil
 import signal
-import socket
 import statistics
 import subprocess
 import sys
@@ -265,6 +264,9 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from portbench.flops import bounds
+from portbench.run import free_ports
 
 REPO = Path(__file__).resolve().parent
 LOG_DIR = REPO / "build" / "chip_smoke"
@@ -533,31 +535,6 @@ def synced_ms(fn, calls: int = 3, warmup: int = 1) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / calls * 1e3
-
-
-def visible_pairs(T: int, causal: bool) -> int:
-    return T * (T + 1) // 2 if causal else T * T
-
-
-def bounds(B, T, H, Hkv, D, causal):
-    """Least time in ms of each kernel on this data: max(FLOPs of its
-    products over the bf16 peak, bytes read once and written once over the
-    HBM rate), and which of the two bounds it."""
-    pairs = B * H * visible_pairs(T, causal)
-    q_b, kv_b, vec_b = B * T * H * D * 2, B * T * Hkv * D * 2, B * H * T * 4
-    work = {
-        # QK^T and PV
-        "flash_fwd": (4 * pairs * D, 2 * q_b + 2 * kv_b + vec_b),
-        # QK^T, dO V^T, dS K
-        "flash_bwd_dq": (6 * pairs * D, 3 * q_b + 2 * kv_b + 2 * vec_b),
-        # QK^T, dO V^T, P^T dO, dS^T Q
-        "flash_bwd_dkv": (8 * pairs * D, 2 * q_b + 4 * kv_b + 2 * vec_b),
-    }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-    return out
 
 
 def compare(name: str, got, ref) -> dict:
@@ -1072,33 +1049,6 @@ def phase_model() -> None:
 
 LINE = re.compile(r"outer (\d+) loss (\S+) world (\d+) revision (\d+) tok_s (\S+) "
                   r"outer_s (\S+) launches (\d+) (\d+) (\d+) digest (\w+)")
-
-
-def free_ports(n: int, offsets=(0,)) -> list:
-    """n base ports chosen by the OS, each with base + offset free for every
-    offset (a peer listens at base, base+4 and base+8). All are held until
-    the n are found, so two bases never share a port, and two smoke runs on
-    one machine do not meet."""
-    held, bases = [], []
-    try:
-        while len(bases) < n:
-            s = socket.socket()
-            held.append(s)
-            s.bind(("127.0.0.1", 0))
-            base = s.getsockname()[1]
-            try:
-                for off in offsets[1:]:
-                    t = socket.socket()
-                    held.append(t)
-                    t.bind(("127.0.0.1", base + off))
-            # taken, or past 65535 (a kernel may hand out ports up to there)
-            except (OSError, OverflowError):
-                continue
-            bases.append(base)
-    finally:
-        for s in held:
-            s.close()
-    return bases
 
 
 def stop(proc) -> None:
@@ -2593,7 +2543,7 @@ def _pp_part(rank: int, dev) -> dict:
         del params, loss
         torch.cuda.empty_cache()
     local = {**{k: full[k] for k in ("tok_emb", "lnf_g")},
-             **pipeline.shard_layer_params({k: full[k] for k in gpt._LAYER_KEYS},
+             **pipeline.shard_layer_params({k: full[k] for k in gpt.LAYER_KEYS},
                                            mesh)}
     del full
     fwd = pipeline.build_pipelined_forward(cfg, mesh, microbatches=PP["microbatches"],
@@ -2613,7 +2563,7 @@ def _pp_part(rank: int, dev) -> dict:
                "hop_s": ring.seconds - hop_s, "hop_bytes": ring.bytes - hop_b}
         if i == 0:
             grads = {k: params[k].grad for k in ("tok_emb", "lnf_g")}
-            for k in gpt._LAYER_KEYS:
+            for k in gpt.LAYER_KEYS:
                 got = mesh_lib.gather_to(params[k].grad, group, 0)
                 if got is not None:
                     grads[k] = torch.cat(got)

@@ -1,5 +1,7 @@
-"""Pieces shared by the model families: the layer loop with checkpointing,
-the fp32-output head product and the cross-entropy losses, and their
+"""Pieces shared by the model families: RMSNorm, the rotary embedding and
+the dense causal attention; the layer loop with checkpointing; the
+fp32-output head product and the cross-entropy losses, and the families'
+head and loss entry over them (head_logits, head_loss); and their
 tensor-parallel forms: the vocab-parallel embedding lookup and
 cross-entropy (whole or in sequence chunks), the row-parallel
 out-projection, and the kv heads that several ranks share where tp does
@@ -8,6 +10,7 @@ not divide n_kv_head."""
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.distributed as dist
@@ -15,6 +18,47 @@ import torch.distributed as dist
 from ..parallel.mesh import all_reduce_, copy_to, group_size, reduce_from
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+
+def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in fp32 (eps inside the rsqrt), times the
+    gain, cast back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * gain).to(x.dtype)
+
+
+def rope(x: torch.Tensor, theta: float, pos_offset: int = 0) -> torch.Tensor:
+    """Rotary embedding over the last dim of x [B, T, H, Dh] at positions
+    pos_offset .. pos_offset + T - 1 (a rank's block of a sequence split
+    over ranks starts at its global offset): the first and second halves
+    rotate as pairs."""
+    _, T, _, Dh = x.shape
+    half = Dh // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    pos = torch.arange(pos_offset, pos_offset + T, dtype=torch.float32, device=x.device)
+    ang = pos[:, None] * freqs[None, :]
+    cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def dense_attention(q, k, v):
+    """Dense causal attention, q [B, T, H, Dh], k/v [B, T, Hkv, Dh]: GQA
+    K/V repeated here (the kernels never do); scores in q's dtype, softmax
+    in fp32 with a -1e30 mask, probabilities cast back. The models' attention
+    where no attn_fn is given."""
+    T, H, Dh = q.shape[1], q.shape[2], q.shape[3]
+    if k.shape[2] != H:
+        k = k.repeat_interleave(H // k.shape[2], dim=2)
+        v = v.repeat_interleave(H // v.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(Dh))
+    i = torch.arange(T, device=q.device)
+    logits = logits.float().masked_fill(i[None, :] > i[:, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -93,6 +137,16 @@ def layer_views(params, keys) -> list:
     return [dict(zip(slices, layer)) for layer in zip(*slices.values())]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b [m, k] x [k, n] with fp32 accumulation and an fp32 result."""
+    if a.dtype == torch.float32:
+        return a @ b.float()
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # products of two bf16 values are exact in fp32
+    return a.float() @ b.float()
+
+
 class _MatmulF32Out(torch.autograd.Function):
     """x @ w with operands in x's dtype, fp32 accumulation and an fp32
     result (JAX's preferred_element_type=float32). The backward takes the
@@ -102,13 +156,7 @@ class _MatmulF32Out(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        x2 = x.reshape(-1, x.shape[-1])
-        if x.is_cuda:
-            out = torch.mm(x2, w, out_dtype=torch.float32)
-        else:
-            # products of two bf16 values are exact in fp32: this is the
-            # same function, summed in fp32
-            out = x2.float() @ w.float()
+        out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
 
     @staticmethod
@@ -168,16 +216,6 @@ def tp_group(group):
     return group if group_size(group) > 1 else None
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b [m, k] x [k, n] with fp32 accumulation and an fp32 result."""
-    if a.dtype == torch.float32:
-        return a @ b.float()
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    # products of two bf16 values are exact in fp32
-    return a.float() @ b.float()
-
-
 class _ColumnIn(torch.autograd.Function):
     """A column-parallel in-projection x @ w with compute-dtype operands,
     taking x in fp32 (from column_input): its backward returns the
@@ -226,6 +264,13 @@ def column(x: torch.Tensor, w: torch.Tensor, dtype, tp, f32_out: bool = False,
     if tp is None:
         return matmul_f32(x, w) if f32_out else x @ w.to(dtype)
     return _ColumnIn.apply(x, w, dtype, f32_out, w_sum)
+
+
+def check_tp(tp: int, widths: dict) -> None:
+    """ValueError where tp does not divide one of widths (what -> size)."""
+    for what, n in widths.items():
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {what}={n}")
 
 
 def kv_ranges(n_head: int, n_kv_head: int, tp: int) -> list:
@@ -329,15 +374,6 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad * (g / total.numel()), None, None
 
 
-def vocab_parallel_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
-                           tp=None) -> torch.Tensor:
-    """gather_ce_loss of fp32 logits [B, T, V] or, with a tp group, of
-    this rank's vocab block [B, T, V/tp] (rank r holds [r·V/tp, ...))."""
-    if tp is None:
-        return gather_ce_loss(logits, targets)
-    return _VocabParallelCE.apply(logits, targets, tp)
-
-
 def tp_head_loss(x: torch.Tensor, head_mat: torch.Tensor, targets, tp,
                  loss_chunk) -> torch.Tensor:
     """The loss of final hidden states x against a vocab-parallel head
@@ -350,15 +386,41 @@ def tp_head_loss(x: torch.Tensor, head_mat: torch.Tensor, targets, tp,
     x_in = column_input(x, tp)
     B, T, _ = x.shape
     if not loss_chunk or T <= loss_chunk:
-        return vocab_parallel_ce_loss(
+        return _VocabParallelCE.apply(
             column(x_in, head_mat, x.dtype, tp, f32_out=True), targets, tp)
 
     def chunk_nll(xc, tc):
         logits = column(xc, head_mat, x.dtype, tp, f32_out=True)
-        return vocab_parallel_ce_loss(logits, tc, tp) * tc.numel()
+        return _VocabParallelCE.apply(logits, tc, tp) * tc.numel()
 
     tot = x.new_zeros((), dtype=torch.float32)
     for i in range(0, T, loss_chunk):
         tot = tot + checkpoint(chunk_nll, x_in[:, i:i + loss_chunk],
                                targets[:, i:i + loss_chunk], use_reentrant=False)
     return tot / (B * T)
+
+
+# ------------------------------------------------------------ head and loss
+
+def head_logits(x: torch.Tensor, head_mat: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits fp32 [B, T, V] of final hidden states x [B, T, d] through the
+    head [d, V], with x's dtype for the operands; with a tp group, this
+    rank's vocab block [B, T, V/tp] from its head block [d, V/tp]."""
+    return column(column_input(x, tp), head_mat, x.dtype, tp, f32_out=True)
+
+
+def head_loss(x: torch.Tensor, head_mat: torch.Tensor, targets: torch.Tensor,
+              loss_chunk: "int | None" = None, tp=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of final hidden states x [B, T, d]
+    through the head [d, V] (this rank's block [d, V/tp] with a tp group):
+    with a group, tp_head_loss; else with loss_chunk < T, chunked_ce_loss;
+    else gather_ce_loss of the whole head_logits. loss_chunk must divide
+    T. The families' loss_fn."""
+    T = targets.shape[1]
+    if loss_chunk and T % loss_chunk:
+        raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
+    if tp is not None:
+        return tp_head_loss(x, head_mat, targets, tp, loss_chunk)
+    if loss_chunk and T > loss_chunk:
+        return chunked_ce_loss(x, head_mat, targets, loss_chunk)
+    return gather_ce_loss(head_logits(x, head_mat), targets)

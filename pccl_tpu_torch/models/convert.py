@@ -5,7 +5,7 @@ transposed; only names and shapes are checked.
 
 And weights across the ranks of a tensor-parallel axis (`TpShards`,
 `shard_params`, `gather_params`): the dim each parameter splits along is
-the one the JAX package's spec puts on "tp" (parallel/mesh.py), but the
+the one the JAX package's spec puts on "tp" (the family's tp_specs), but the
 blocks are per head, not the spec's contiguous column blocks. Under
 `P(None, None, "tp")` JAX stores GPT's fused `attn_qkv` [L, d, 3d] in
 contiguous column blocks, so at tp=2 rank 0 would hold all of q and half
@@ -35,15 +35,14 @@ import torch
 
 from .._device import resolve_device
 from ..parallel import mesh as mesh_lib
-from ..parallel.train import family
+from . import family
 from ._common import kv_ranges
 
 
 def params_from_numpy(np_params: Dict[str, np.ndarray], cfg,
                       device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Tensors on `device` from a numpy dict whose names and shapes are
-    exactly those of init_params(cfg) of the config's family (a GPTConfig
-    or a LlamaConfig)."""
+    exactly those of init_params(cfg) of the config's family."""
     want = family(cfg).param_shapes(cfg)
     if set(np_params) != set(want):
         raise ValueError(f"parameter names differ: missing "
@@ -74,22 +73,10 @@ _SECTIONS = {"attn_qkv": 3, "attn_kv": 2}
 
 def tp_layout(cfg, tp: int) -> Dict[str, Optional[int]]:
     """Name -> the dim split over tp (None: replicated) for every parameter
-    of the config's family; raises where tp does not split whole heads,
-    the FFN width or the vocab (JAX's rules), or where neither of tp and
-    n_kv_head divides the other (_common.kv_ranges)."""
-    from . import llama
-
-    is_llama = isinstance(cfg, llama.LlamaConfig)
-    need = {"n_head": cfg.n_head, "vocab_size": cfg.vocab_size,
-            "ffn width": cfg.ffn_dim if is_llama else 4 * cfg.n_embd}
-    for what, n in need.items():
-        if n % tp:
-            raise ValueError(f"tp={tp} does not divide {what}={n}")
-    if is_llama:
-        kv_ranges(cfg.n_head, cfg.n_kv_head, tp)
-    specs = mesh_lib.param_specs(is_llama, getattr(cfg, "untie_head", False))
+    of the config's family, from its tp_specs, which raises where tp does
+    not split the family's widths (JAX's rules)."""
     return {name: (spec.index("tp") if "tp" in spec else None)
-            for name, spec in specs.items()}
+            for name, spec in family(cfg).tp_specs(cfg, tp).items()}
 
 
 def _split(x: torch.Tensor, dim: int, sections: int, n: int) -> list:
@@ -115,16 +102,13 @@ class TpShards:
     of the axis must call gather and scatter, in the same order."""
 
     def __init__(self, cfg, mesh, axis: str = "tp"):
-        from . import llama
-
         self.group = mesh.group(axis)
         self.size = mesh.size(axis)
         self.rank = mesh.rank(axis)
         self.layout = tp_layout(cfg, self.size)
-        # Llama's kv heads: each rank's [lo, hi), in columns of one
-        # section (k or v) of attn_kv
-        self._kv = None
-        if isinstance(cfg, llama.LlamaConfig):
+        # grouped kv heads (attn_kv, k | v): each rank's [lo, hi), in
+        # columns of one section (k or v)
+        if "attn_kv" in self.layout:
             dh = cfg.head_dim
             self._kv = [(lo * dh, hi * dh) for lo, hi in
                         kv_ranges(cfg.n_head, cfg.n_kv_head, self.size)]
@@ -140,7 +124,7 @@ class TpShards:
         dim = self._dim(name)
         if dim is None:
             return [x] * self.size
-        if name == "attn_kv" and self._kv is not None:
+        if name == "attn_kv":
             k, v = x.chunk(2, dim)
             return [torch.cat([k.narrow(dim, lo, hi - lo), v.narrow(dim, lo, hi - lo)],
                               dim) for lo, hi in self._kv]
@@ -156,7 +140,7 @@ class TpShards:
     def full_shape(self, name: str, shape) -> tuple:
         """The full tensor's shape from a block's."""
         dim, shape = self._dim(name), list(shape)
-        if name == "attn_kv" and self._kv is not None:
+        if name == "attn_kv":
             shape[dim] = 2 * self._kv_width
         elif dim is not None:
             shape[dim] *= self.size
@@ -166,7 +150,7 @@ class TpShards:
         dim = self._dim(name)
         if dim is None:
             return blocks[0]
-        if name == "attn_kv" and self._kv is not None:
+        if name == "attn_kv":
             # each column range from the first rank that holds it
             sections = [[], []]
             end = 0

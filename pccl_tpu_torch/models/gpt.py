@@ -6,11 +6,11 @@ tensors stacked over a leading [n_layer] dim, and `x @ W` weights laid out
 
 Numerics follow pccl_tpu/models/gpt.py: parameters in fp32, compute in
 `compute_dtype` (bf16 by default); RMSNorm in fp32 with eps 1e-6 inside the
-rsqrt (`_rmsnorm`'s default; models/lfm2.py passes its own); rotary
-embeddings on two halves of the head dim (not interleaved), with cos and
-sin cast to the compute dtype; GELU with the tanh
-approximation (jax.nn.gelu's default); the tied head with compute-dtype
-operands and an fp32 result.
+rsqrt and rotary embeddings on two halves of the head dim (not
+interleaved), with cos and sin cast to the compute dtype
+(models/_common.py: rmsnorm, rope); GELU with the tanh approximation
+(jax.nn.gelu's default); the tied head with compute-dtype operands and an
+fp32 result.
 
 Tensor parallelism (`tp=`, a process group, or None): each rank holds its
 block of the parameters (models/convert.py: whole heads of q, k and v,
@@ -33,9 +33,11 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ._common import (chunked_ce_loss, column, column_input, embed,
-                      gather_ce_loss, layer_views, row_parallel, run_blocks,
-                      tp_group, tp_head_loss)
+from ._common import (check_tp, column, column_input, dense_attention, embed,
+                      head_logits, head_loss, layer_views, rmsnorm, rope,
+                      row_parallel, run_blocks, tp_group)
+
+ONE_RANK = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,7 @@ class GPTConfig:
         return self.n_embd // self.n_head
 
 
-_LAYER_KEYS = ("ln1_g", "ln2_g", "attn_qkv", "attn_out", "mlp_in", "mlp_out")
+LAYER_KEYS = ("ln1_g", "ln2_g", "attn_qkv", "attn_out", "mlp_in", "mlp_out")
 
 
 def param_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
@@ -106,57 +108,23 @@ def init_params(generator: torch.Generator, cfg: GPTConfig) -> Dict[str, torch.T
     return params
 
 
-def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (y * gain).to(x.dtype)
-
-
-def _rope(x: torch.Tensor, theta: float, pos_offset: int = 0) -> torch.Tensor:
-    """Rotary embedding over the last dim of x [B, T, H, Dh] at positions
-    pos_offset .. pos_offset + T - 1 (a rank's block of a sequence split
-    over ranks starts at its global offset): the first and second halves
-    rotate as pairs."""
-    _, T, _, Dh = x.shape
-    half = Dh // 2
-    freqs = torch.exp(-math.log(theta)
-                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    pos = torch.arange(pos_offset, pos_offset + T, dtype=torch.float32, device=x.device)
-    ang = pos[:, None] * freqs[None, :]
-    cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def _attention(q, k, v):
-    """Dense causal attention, q/k/v [B, T, H, Dh]: scores in q's dtype,
-    softmax in fp32 with a -1e30 mask, probabilities cast back."""
-    T, Dh = q.shape[1], q.shape[3]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(Dh))
-    i = torch.arange(T, device=q.device)
-    logits = logits.float().masked_fill(i[None, :] > i[:, None], -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
-def _block(x, layer: Dict[str, torch.Tensor], cfg: GPTConfig, attn_fn=None,
-           pos_offset=0, tp=None):
+def block(x, layer: Dict[str, torch.Tensor], cfg: GPTConfig, attn_fn=None,
+          pos_offset=0, tp=None):
     """One block on this rank's heads, with `layer` its slices of the
     stacked leaves (layer_views): H = the local qkv width / 3 Dh (all heads
     without a tp group)."""
     B, T, _ = x.shape
     Dh = cfg.head_dim
-    h = _rmsnorm(x, layer["ln1_g"])
+    h = rmsnorm(x, layer["ln1_g"])
     qkv = column(column_input(h, tp), layer["attn_qkv"], h.dtype, tp)
     q, k, v = qkv.chunk(3, dim=-1)
     H = q.shape[-1] // Dh
-    q = _rope(q.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
-    k = _rope(k.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
+    q = rope(q.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
+    k = rope(k.reshape(B, T, H, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, H, Dh)
-    att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
+    att = (attn_fn or dense_attention)(q, k, v).reshape(B, T, H * Dh)
     x = x + row_parallel(att, layer["attn_out"], tp)
-    h = _rmsnorm(x, layer["ln2_g"])
+    h = rmsnorm(x, layer["ln2_g"])
     h = F.gelu(column(column_input(h, tp), layer["mlp_in"], h.dtype, tp),
                approximate="tanh")
     return x + row_parallel(h, layer["mlp_out"], tp)
@@ -168,10 +136,10 @@ def hidden(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
     hidden states [B, T, d] (the same on every rank of a tp group)."""
     tp = tp_group(tp)
     x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
-    layers = layer_views(params, _LAYER_KEYS)
-    x = run_blocks(lambda h, i: _block(h, layers[i], cfg, attn_fn, pos_offset, tp),
+    layers = layer_views(params, LAYER_KEYS)
+    x = run_blocks(lambda h, i: block(h, layers[i], cfg, attn_fn, pos_offset, tp),
                    x, cfg.n_layer, remat)
-    return _rmsnorm(x, params["lnf_g"])
+    return rmsnorm(x, params["lnf_g"])
 
 
 def _head_mat(params, cfg: GPTConfig) -> torch.Tensor:
@@ -186,33 +154,50 @@ def forward(params, tokens, cfg: GPTConfig, attn_fn=None, remat=False,
     pos_offset is the global position of the first token. With a tp group:
     this rank's vocab block of the logits, [B, T, vocab/tp]."""
     tp = tp_group(tp)
-    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp)
-    return column(column_input(x, tp), _head_mat(params, cfg), x.dtype, tp,
-                  f32_out=True)
+    return head_logits(hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp),
+                       _head_mat(params, cfg), tp)
 
 
 def loss_fn(params, tokens, targets, cfg: GPTConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
             pos_offset: int = 0, tp=None, profiler=None) -> torch.Tensor:
-    """Mean next-token cross-entropy. loss_chunk computes the head and the
-    loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank, chunked or not. profiler
-    is taken for the families that record sections of their own; this one
-    records none."""
-    T = targets.shape[1]
-    if loss_chunk and T % loss_chunk:
-        raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
+    """Mean next-token cross-entropy (models/_common.py:head_loss; with a
+    tp group vocab-parallel and the same on every rank); pos_offset as in
+    forward. profiler is ignored: this family records no section."""
     tp = tp_group(tp)
-    if tp is not None:
-        return tp_head_loss(hidden(params, tokens, cfg, attn_fn, remat,
-                                   pos_offset, tp),
-                            _head_mat(params, cfg), targets, tp, loss_chunk)
-    if loss_chunk and T > loss_chunk:
-        x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
-        return chunked_ce_loss(x, _head_mat(params, cfg), targets, loss_chunk)
-    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat, pos_offset),
-                          targets)
+    return head_loss(hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp),
+                     _head_mat(params, cfg), targets, loss_chunk, tp)
+
+
+# ------------------------------------------------------------ tensor parallel
+
+# The JAX package's tp rules (pccl_tpu/parallel/mesh.py:GPT_PARAM_SPECS):
+# the mesh axis of each dim of each parameter, or None
+_PARAM_SPECS: Dict[str, tuple] = {
+    # vocab-parallel embedding (Megatron-style); the tied head is its
+    # transpose
+    "tok_emb": ("tp", None),
+    "ln1_g": (None, None),
+    "ln2_g": (None, None),
+    # column-parallel in-projections: output features over tp
+    "attn_qkv": (None, None, "tp"),
+    "mlp_in": (None, None, "tp"),
+    # row-parallel out-projections: input features over tp
+    "attn_out": (None, "tp", None),
+    "mlp_out": (None, "tp", None),
+    "lnf_g": (None,),
+}
+
+
+def tp_specs(cfg: GPTConfig, tp: int) -> Dict[str, tuple]:
+    """The spec of each parameter, the untied head's vocab-parallel like
+    Llama's; raises where tp does not split whole heads, the FFN width or
+    the vocab."""
+    check_tp(tp, {"n_head": cfg.n_head, "vocab_size": cfg.vocab_size,
+                  "ffn width": 4 * cfg.n_embd})
+    if cfg.untie_head:
+        return {**_PARAM_SPECS, "head": (None, "tp")}
+    return dict(_PARAM_SPECS)
 
 
 def tiny_config(**overrides) -> GPTConfig:

@@ -49,10 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import moe
-from ._common import (chunked_ce_loss, embed, gather_ce_loss, layer_views, matmul_f32,
-                      run_blocks)
-from .gpt import _rmsnorm
-from .llama import _attn, _swiglu
+from ._common import embed, head_logits, head_loss, layer_views, rmsnorm, run_blocks
+from .llama import attention, swiglu
 
 KINDS = ("conv", "full_attention")
 # parallel/train.py refuses tensor and sequence parallelism for this family
@@ -206,52 +204,46 @@ def hidden(params, tokens, cfg: Lfm2MoeConfig, attn_fn=None, remat=False,
     eps = cfg.norm_eps
 
     def block(x, l):
-        h = _rmsnorm(x, norms[l]["op_norm"], eps)
+        h = rmsnorm(x, norms[l]["op_norm"], eps)
         mix = mixers[l]
         if cfg.layer_types[l] == "conv":
             x = x + short_conv(h, mix)
         else:
-            x = x + _attn(h, mix, cfg, attn_fn,
-                          qk_norm=(mix["q_norm"], mix["k_norm"], eps))
-        h = _rmsnorm(x, norms[l]["ffn_norm"], eps)
+            x = x + attention(h, mix, cfg, attn_fn,
+                              qk_norm=(mix["q_norm"], mix["k_norm"], eps))
+        h = rmsnorm(x, norms[l]["ffn_norm"], eps)
         ffn = ffns[l]
         if l < cfg.num_dense_layers:
-            return x + _swiglu(h, ffn["mlp_gate"], ffn["mlp_up"], ffn["mlp_down"])
+            return x + swiglu(h, ffn["mlp_gate"], ffn["mlp_up"], ffn["mlp_down"])
         m = l - cfg.num_dense_layers
         return x + moe.moe_topk(h, ffn["moe_router"], ffn["moe_gate_up"], ffn["moe_down"],
                                 moe_bias[m], k=cfg.top_k, norm_topk_prob=cfg.norm_topk_prob,
                                 scale=cfg.routed_scale, layer=l, profiler=profiler)
 
     x = run_blocks(block, x, cfg.n_layer, remat)
-    return _rmsnorm(x, params["lnf_g"], eps)
+    return rmsnorm(x, params["lnf_g"], eps)
 
 
 def forward(params, tokens, cfg: Lfm2MoeConfig, attn_fn=None, remat=False,
             moe_bias=None, profiler=None):
     """tokens int [B, T] -> logits fp32 [B, T, vocab] through the tied head,
     with compute-dtype operands and fp32 accumulation."""
-    x = hidden(params, tokens, cfg, attn_fn, remat, moe_bias, profiler)
-    return matmul_f32(x, params["tok_emb"].t())
+    return head_logits(hidden(params, tokens, cfg, attn_fn, remat, moe_bias, profiler),
+                       params["tok_emb"].t())
 
 
 def loss_fn(params, tokens, targets, cfg: Lfm2MoeConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None, pos_offset: int = 0,
             tp=None, moe_bias=None, profiler=None) -> torch.Tensor:
-    """Mean next-token cross-entropy; loss_chunk as in models/llama.py.
+    """Mean next-token cross-entropy (models/_common.py:head_loss).
     moe_bias [Lm, E] (init_buffers; None: zeros) shifts the choice of
     experts; profiler (utils/profiler.Profiler) takes ops/moe.py's
     sections. A tp group or a sequence block (pos_offset) raises."""
     if tp is not None or pos_offset:
         raise ValueError("LFM2 runs on one rank: no tensor, pipeline or sequence "
                          "parallelism")
-    T = targets.shape[1]
-    if loss_chunk and T % loss_chunk:
-        raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
-    if loss_chunk and T > loss_chunk:
-        x = hidden(params, tokens, cfg, attn_fn, remat, moe_bias, profiler)
-        return chunked_ce_loss(x, params["tok_emb"].t(), targets, loss_chunk)
-    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat, moe_bias,
-                                  profiler), targets)
+    return head_loss(hidden(params, tokens, cfg, attn_fn, remat, moe_bias, profiler),
+                     params["tok_emb"].t(), targets, loss_chunk)
 
 
 def tiny_config(**overrides) -> Lfm2MoeConfig:

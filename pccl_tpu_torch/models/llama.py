@@ -5,13 +5,13 @@ over a leading [n_layer] dim, `x @ W` weights laid out [in, out].
 
 K/V stay Hkv-shaped from the kv projection into `attn_fn`: the flash kernels
 take grouped K/V directly (kv head h // G serves q head h), so no repeated
-K/V tensor is ever made on the card. Only the dense `_attention` repeats
-them, inside itself.
+K/V tensor is ever made on the card. Only the dense attention
+(models/_common.py:dense_attention) repeats them, inside itself.
 
 Numerics follow the JAX package: parameters in fp32, compute in
 `compute_dtype` (bf16 by default); RMSNorm and rotary embeddings as in
-models/gpt.py (the same functions); SiLU gating; the untied head with
-compute-dtype operands and an fp32 result.
+models/gpt.py (the same functions, models/_common.py); SiLU gating; the
+untied head with compute-dtype operands and an fp32 result.
 
 Tensor parallelism (`tp=`) as in models/gpt.py: a rank holds whole q heads
 [r·H/tp, ...) and the kv heads they read (models/_common.py:kv_ranges:
@@ -31,10 +31,12 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ._common import (chunked_ce_loss, column, column_input, embed,
-                      gather_ce_loss, kv_grad_sum, layer_views, row_parallel,
-                      run_blocks, tp_group, tp_head_loss)
-from .gpt import _rmsnorm, _rope
+from ._common import (check_tp, column, column_input, dense_attention, embed,
+                      head_logits, head_loss, kv_grad_sum, kv_ranges,
+                      layer_views, rmsnorm, rope, row_parallel, run_blocks,
+                      tp_group)
+
+ONE_RANK = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +62,7 @@ class LlamaConfig:
                              f"{self.n_head}")
 
 
-_LAYER_KEYS = ("ln1_g", "ln2_g", "attn_q", "attn_kv", "attn_out", "mlp_gate",
+LAYER_KEYS = ("ln1_g", "ln2_g", "attn_q", "attn_kv", "attn_out", "mlp_gate",
                "mlp_up", "mlp_down")
 
 
@@ -113,23 +115,8 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig) -> Dict[str, torch
     }
 
 
-def _attention(q, k, v):
-    """Dense causal attention, q [B, T, H, Dh], k/v [B, T, Hkv, Dh]: GQA
-    K/V repeated here (the kernels never do); scores in q's dtype, softmax
-    in fp32 with a -1e30 mask, probabilities cast back."""
-    T, H, Dh = q.shape[1], q.shape[2], q.shape[3]
-    if k.shape[2] != H:
-        k = k.repeat_interleave(H // k.shape[2], dim=2)
-        v = v.repeat_interleave(H // v.shape[2], dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(Dh))
-    i = torch.arange(T, device=q.device)
-    logits = logits.float().masked_fill(i[None, :] > i[:, None], -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
-def _attn(h, layer: Dict[str, torch.Tensor], cfg, attn_fn=None, pos_offset=0,
-          tp=None, qk_norm=None):
+def attention(h, layer: Dict[str, torch.Tensor], cfg, attn_fn=None, pos_offset=0,
+              tp=None, qk_norm=None):
     """The attention of a block on this rank's heads, from the normed h:
     the q and kv products, rotary embeddings, attn_fn, the out product. H
     and Hkv follow from the local q and kv widths. qk_norm (q gain, k gain,
@@ -147,28 +134,28 @@ def _attn(h, layer: Dict[str, torch.Tensor], cfg, attn_fn=None, pos_offset=0,
     k = k.reshape(B, T, Hkv, Dh)
     if qk_norm is not None:
         q_gain, k_gain, eps = qk_norm
-        q, k = _rmsnorm(q, q_gain, eps), _rmsnorm(k, k_gain, eps)
-    q = _rope(q, cfg.rope_theta, pos_offset)
-    k = _rope(k, cfg.rope_theta, pos_offset)
+        q, k = rmsnorm(q, q_gain, eps), rmsnorm(k, k_gain, eps)
+    q = rope(q, cfg.rope_theta, pos_offset)
+    k = rope(k, cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, Hkv, Dh)
-    att = (attn_fn or _attention)(q, k, v).reshape(B, T, H * Dh)
+    att = (attn_fn or dense_attention)(q, k, v).reshape(B, T, H * Dh)
     return row_parallel(att, layer["attn_out"], tp)
 
 
-def _swiglu(h, gate, up, down, tp=None):
+def swiglu(h, gate, up, down, tp=None):
     """(silu(h W_gate) * h W_up) W_down on this rank's columns."""
     h_in = column_input(h, tp)
     gated = F.silu(column(h_in, gate, h.dtype, tp)) * column(h_in, up, h.dtype, tp)
     return row_parallel(gated, down, tp)
 
 
-def _block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
-           pos_offset=0, tp=None):
+def block(x, layer: Dict[str, torch.Tensor], cfg: LlamaConfig, attn_fn=None,
+          pos_offset=0, tp=None):
     """One block on this rank's heads (all of them without a tp group),
     with `layer` its slices of the stacked leaves (layer_views)."""
-    x = x + _attn(_rmsnorm(x, layer["ln1_g"]), layer, cfg, attn_fn, pos_offset, tp)
-    return x + _swiglu(_rmsnorm(x, layer["ln2_g"]), layer["mlp_gate"],
-                       layer["mlp_up"], layer["mlp_down"], tp)
+    x = x + attention(rmsnorm(x, layer["ln1_g"]), layer, cfg, attn_fn, pos_offset, tp)
+    return x + swiglu(rmsnorm(x, layer["ln2_g"]), layer["mlp_gate"],
+                      layer["mlp_up"], layer["mlp_down"], tp)
 
 
 def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
@@ -177,10 +164,10 @@ def hidden(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
     hidden states [B, T, d] (the same on every rank of a tp group)."""
     tp = tp_group(tp)
     x = embed(params["tok_emb"], tokens, cfg.compute_dtype, tp)
-    layers = layer_views(params, _LAYER_KEYS)
-    x = run_blocks(lambda h, i: _block(h, layers[i], cfg, attn_fn, pos_offset, tp),
+    layers = layer_views(params, LAYER_KEYS)
+    x = run_blocks(lambda h, i: block(h, layers[i], cfg, attn_fn, pos_offset, tp),
                    x, cfg.n_layer, remat)
-    return _rmsnorm(x, params["lnf_g"])
+    return rmsnorm(x, params["lnf_g"])
 
 
 def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
@@ -190,32 +177,50 @@ def forward(params, tokens, cfg: LlamaConfig, attn_fn=None, remat=False,
     position of the first token. With a tp group: this rank's vocab block,
     [B, T, vocab/tp]."""
     tp = tp_group(tp)
-    x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp)
-    return column(column_input(x, tp), params["head"], x.dtype, tp, f32_out=True)
+    return head_logits(hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp),
+                       params["head"], tp)
 
 
 def loss_fn(params, tokens, targets, cfg: LlamaConfig, attn_fn=None,
             remat=False, loss_chunk: "int | None" = None,
             pos_offset: int = 0, tp=None, profiler=None) -> torch.Tensor:
-    """Mean next-token cross-entropy. loss_chunk computes the head and the
-    loss in checkpointed sequence chunks (models/_common.py) and must
-    divide T; pos_offset as in forward. With a tp group the loss is
-    vocab-parallel and the same on every rank, chunked or not. profiler
-    is taken for the families that record sections of their own; this one
-    records none."""
-    T = targets.shape[1]
-    if loss_chunk and T % loss_chunk:
-        raise ValueError(f"loss_chunk {loss_chunk} must divide T={T}")
+    """Mean next-token cross-entropy (models/_common.py:head_loss; with a
+    tp group vocab-parallel and the same on every rank); pos_offset as in
+    forward. profiler is ignored: this family records no section."""
     tp = tp_group(tp)
-    if tp is not None:
-        return tp_head_loss(hidden(params, tokens, cfg, attn_fn, remat,
-                                   pos_offset, tp),
-                            params["head"], targets, tp, loss_chunk)
-    if loss_chunk and T > loss_chunk:
-        x = hidden(params, tokens, cfg, attn_fn, remat, pos_offset)
-        return chunked_ce_loss(x, params["head"], targets, loss_chunk)
-    return gather_ce_loss(forward(params, tokens, cfg, attn_fn, remat, pos_offset),
-                          targets)
+    return head_loss(hidden(params, tokens, cfg, attn_fn, remat, pos_offset, tp),
+                     params["head"], targets, loss_chunk, tp)
+
+
+# ------------------------------------------------------------ tensor parallel
+
+# The JAX package's tp rules (pccl_tpu/parallel/mesh.py:LLAMA_PARAM_SPECS):
+# the mesh axis of each dim of each parameter, or None
+_PARAM_SPECS: Dict[str, tuple] = {
+    "tok_emb": ("tp", None),
+    "ln1_g": (None, None),
+    "ln2_g": (None, None),
+    # column-parallel in-projections (q, grouped kv, both MLP branches)
+    "attn_q": (None, None, "tp"),
+    "attn_kv": (None, None, "tp"),
+    "mlp_gate": (None, None, "tp"),
+    "mlp_up": (None, None, "tp"),
+    # row-parallel out-projections
+    "attn_out": (None, "tp", None),
+    "mlp_down": (None, "tp", None),
+    "lnf_g": (None,),
+    "head": (None, "tp"),  # untied unembedding: vocab-parallel
+}
+
+
+def tp_specs(cfg: LlamaConfig, tp: int) -> Dict[str, tuple]:
+    """The spec of each parameter; raises where tp does not split whole
+    heads, the FFN width or the vocab, or where neither of tp and
+    n_kv_head divides the other (_common.kv_ranges)."""
+    check_tp(tp, {"n_head": cfg.n_head, "vocab_size": cfg.vocab_size,
+                  "ffn width": cfg.ffn_dim})
+    kv_ranges(cfg.n_head, cfg.n_kv_head, tp)
+    return dict(_PARAM_SPECS)
 
 
 def tiny_config(**overrides) -> LlamaConfig:

@@ -8,11 +8,11 @@ Ranks are laid out row-major over the mesh's shape, as `make_mesh` in the
 JAX package reshapes its device list: for axes ("dp", "sp") of shape
 (D, S), rank i_dp * S + i_sp sits at (i_dp, i_sp).
 
-The tensor-parallel rules of the JAX module (`GPT_PARAM_SPECS`,
-`LLAMA_PARAM_SPECS`: which dim of each parameter is split over "tp") are
-kept as data; models/convert.py cuts the blocks a rank holds. Where XLA
-inserts the collectives of a sharded program, a rank of the port calls
-them itself, as autograd Functions over a process group:
+The tensor-parallel rules of the JAX module (which dim of each parameter
+is split over "tp") belong to the model families (their tp_specs), and
+models/convert.py cuts the blocks a rank holds. Where XLA inserts the
+collectives of a sharded program, a rank of the port calls them itself,
+as autograd Functions over a process group:
 `copy_to` (identity, backward SUM: the input of a column-parallel
 product), `reduce_from` (SUM, backward identity: the output of a
 row-parallel product) and `all_to_all` (lax.all_to_all over dim 0, its own
@@ -51,54 +51,6 @@ def factor_mesh(n: int, n_axes: int = 2) -> Tuple[int, ...]:
             i = max(0, i - 1)
     dims[0] *= rem
     return tuple(dims)
-
-
-# --- the tensor-parallel rules (pccl_tpu/parallel/mesh.py), as data: each
-# parameter's spec names the mesh axis of each of its dims, or None
-
-GPT_PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
-    # vocab-parallel embedding (Megatron-style); the tied head is its
-    # transpose
-    "tok_emb": ("tp", None),
-    "ln1_g": (None, None),
-    "ln2_g": (None, None),
-    # column-parallel in-projections: output features over tp
-    "attn_qkv": (None, None, "tp"),
-    "mlp_in": (None, None, "tp"),
-    # row-parallel out-projections: input features over tp
-    "attn_out": (None, "tp", None),
-    "mlp_out": (None, "tp", None),
-    "lnf_g": (None,),
-}
-
-# present only with GPTConfig.untie_head: vocab-parallel, like Llama's
-_GPT_HEAD_SPEC: Tuple[Optional[str], ...] = (None, "tp")
-
-LLAMA_PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
-    "tok_emb": ("tp", None),
-    "ln1_g": (None, None),
-    "ln2_g": (None, None),
-    # column-parallel in-projections (q, grouped kv, both MLP branches)
-    "attn_q": (None, None, "tp"),
-    "attn_kv": (None, None, "tp"),
-    "mlp_gate": (None, None, "tp"),
-    "mlp_up": (None, None, "tp"),
-    # row-parallel out-projections
-    "attn_out": (None, "tp", None),
-    "mlp_down": (None, "tp", None),
-    "lnf_g": (None,),
-    "head": (None, "tp"),  # untied unembedding: vocab-parallel
-}
-
-
-def param_specs(llama: bool, untie_head: bool = False) -> Dict[str, tuple]:
-    """The specs of a family's parameters (GPT's head only when untied)."""
-    if llama:
-        return dict(LLAMA_PARAM_SPECS)
-    specs = dict(GPT_PARAM_SPECS)
-    if untie_head:
-        specs["head"] = _GPT_HEAD_SPEC
-    return specs
 
 
 class HostStage:

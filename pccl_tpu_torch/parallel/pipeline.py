@@ -23,8 +23,8 @@ from typing import Callable, Dict
 
 import torch
 
-from ..models import gpt
-from ..models._common import layer_views
+from ..models import family, gpt
+from ..models._common import layer_views, rmsnorm
 from .mesh import copy_to, reduce_from
 
 
@@ -59,8 +59,8 @@ class _Shift(torch.autograd.Function):
 def _run_local_stack(layers_local, x, cfg: gpt.GPTConfig, attn_fn):
     """One stage's layers, in order, on views made anew at each call (the
     pipeline calls it once per tick)."""
-    for layer in layer_views(layers_local, gpt._LAYER_KEYS):
-        x = gpt._block(x, layer, cfg, attn_fn)
+    for layer in layer_views(layers_local, gpt.LAYER_KEYS):
+        x = gpt.block(x, layer, cfg, attn_fn)
     return x
 
 
@@ -107,16 +107,16 @@ def build_pipelined_forward(cfg: gpt.GPTConfig, mesh, *, axis: str = "pp",
     in fp32, x.float() @ tok_emb.T.float(), the JAX pipeline's own (not
     gpt.forward's compute-dtype operands); untie_head is ignored, as in
     JAX."""
-    if not isinstance(cfg, gpt.GPTConfig):
+    if family(cfg) is not gpt:
         raise TypeError(f"the pipeline runs GPT blocks; {type(cfg).__name__} is "
                         "not a GPTConfig")
 
     def forward(params, tokens):
         x = params["tok_emb"][tokens.long()].to(cfg.compute_dtype)
-        layers = {k: params[k] for k in gpt._LAYER_KEYS}
+        layers = {k: params[k] for k in gpt.LAYER_KEYS}
         x = pipeline_blocks(x, layers, cfg, mesh, axis=axis,
                             microbatches=microbatches, attn_fn=attn_fn)
-        x = gpt._rmsnorm(x, params["lnf_g"])
+        x = rmsnorm(x, params["lnf_g"])
         return x.float() @ params["tok_emb"].t().float()
 
     return forward

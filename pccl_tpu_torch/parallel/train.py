@@ -1,5 +1,6 @@
 """The inner train step: AdamW over a model's parameter dict (GPT, Llama
-or LFM2, dispatched on the config's family by `family`).
+or LFM2, dispatched on the config's family by models.family, which this
+module offers as `family` too).
 
 Matches pccl_tpu/parallel/train.py on one device: `optax.adamw(lr, b1=0.9,
 b2=0.95, weight_decay=0.1)` (eps 1e-8, no mask, so the gains and the
@@ -40,19 +41,11 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .._device import resolve_device
-from ..models import gpt, lfm2, llama
+from ..models import family
+from ..models.convert import TpShards
 from .codec import build_codec
 from .hierarchical import local_mean
 from .mesh import local_batch
-
-
-def family(cfg):
-    """The model module of a config's family: models.llama for a
-    LlamaConfig, models.lfm2 for an Lfm2MoeConfig, else models.gpt (the JAX
-    package's train.family, without the sharding rules)."""
-    if isinstance(cfg, llama.LlamaConfig):
-        return llama
-    return lfm2 if isinstance(cfg, lfm2.Lfm2MoeConfig) else gpt
 
 
 @dataclasses.dataclass
@@ -91,8 +84,6 @@ def tp_shards(cfg, mesh, axis: str = "tp"):
     mesh has none or it holds one rank."""
     if mesh is None or mesh.shape.get(axis, 1) == 1:
         return None
-    from ..models.convert import TpShards
-
     return TpShards(cfg, mesh, axis)
 
 
@@ -205,7 +196,7 @@ def build_loss_and_grad(cfg, attn_fn=None, remat=False,
     parameter's `.grad`. attn_fn, remat, loss_chunk, accum_steps, mesh,
     seq_axis and profiler as in build_train_step."""
     model = family(cfg)
-    if getattr(model, "ONE_RANK", False) and mesh is not None and (
+    if model.ONE_RANK and mesh is not None and (
             mesh.shape.get("tp", 1) > 1 or seq_axis is not None):
         raise ValueError(f"{model.__name__} runs on one rank: no tensor or "
                          "sequence parallelism")

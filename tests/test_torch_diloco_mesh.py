@@ -103,13 +103,12 @@ def _jax_peer(argv) -> int:
 
     from pccl_tpu.parallel import diloco, mesh as jmesh, train as jtrain
     from pccl_tpu_torch.examples import common as tcommon
-    from pccl_tpu_torch.parallel import train as ttrain
+    from pccl_tpu_torch.models import family
 
     mesh = jmesh.make_mesh(jax.devices(), ("dp", "tp"))
     cfg = common.model_config(args, char_level=False)
     tcfg = tcommon.model_config(args)
-    init = ttrain.family(tcfg).init_params(torch.Generator().manual_seed(args.seed),
-                                           tcfg)
+    init = family(tcfg).init_params(torch.Generator().manual_seed(args.seed), tcfg)
     _, tx, _ = jtrain.make_train_state(jax.random.PRNGKey(args.seed), cfg, mesh,
                                        lr=args.inner_lr)
     sh = jtrain.family(cfg)[1](mesh, cfg)

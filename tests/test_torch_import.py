@@ -38,6 +38,43 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _imports(path: Path) -> set:
+    """Every module a file imports, anywhere in it, relative imports
+    resolved: `from X import n` counts as X and as X.n."""
+    package = path.relative_to(REPO).with_suffix("").parts[:-1]
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else ()
+            mod = ".".join(base + ((node.module,) if node.module else ()))
+            out |= {mod} | {f"{mod}.{a.name}" for a in node.names}
+    return out
+
+
+def _under(mod: str, prefixes) -> bool:
+    return any(mod == p or mod.startswith(p + ".") for p in prefixes)
+
+
+def test_layers_import_one_way():
+    """models/ and ops/ import none of the modules built on them (the train
+    step, DiLoCo, the pipeline, the hierarchical reduce), and
+    parallel/mesh.py, the process groups under the models, imports nothing
+    of models/."""
+    above = [f"pccl_tpu_torch.parallel.{m}"
+             for m in ("train", "diloco", "pipeline", "hierarchical")]
+    bad = []
+    for path in PORT_FILES:
+        rel = path.relative_to(REPO).as_posix()
+        if rel.startswith(("pccl_tpu_torch/models/", "pccl_tpu_torch/ops/")):
+            bad += [(rel, m) for m in sorted(_imports(path)) if _under(m, above)]
+        if rel == "pccl_tpu_torch/parallel/mesh.py":
+            bad += [(rel, m) for m in sorted(_imports(path))
+                    if _under(m, ["pccl_tpu_torch.models"])]
+    assert not bad, bad
+
+
 def test_every_module_imports_without_jax():
     """All modules import in a fresh interpreter where jax and pccl_tpu
     cannot be imported at all."""

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from pccl_tpu.models import gpt as jgpt
 from pccl_tpu.ops import flash_attention as jax_flash
 from pccl_tpu_torch.models import convert, gpt
-from pccl_tpu_torch.models._common import matmul_f32
+from pccl_tpu_torch.models._common import matmul_f32, rmsnorm, rope
 from pccl_tpu_torch.ops.flash_attention import flash_attention
 from pccl_tpu_torch.parallel import pipeline, train
 from torch_layer_views import edges_into, indexed_hidden
@@ -107,19 +107,19 @@ def test_numerical_traps_match_jax():
     cos/sin in the compute dtype; rmsnorm runs in fp32 with eps 1e-6."""
     rng = np.random.RandomState(4)
     x = rng.randn(2, 8, 4, 32).astype(np.float32) * 3
-    _close(gpt._rope(torch.from_numpy(x), 10000.0).numpy(),
+    _close(rope(torch.from_numpy(x), 10000.0).numpy(),
            jgpt._rope(jnp.asarray(x), 10000.0), 1e-5)
     h = rng.randn(2, 8, 64).astype(np.float32) * 1e-3   # eps matters here
     g = rng.randn(64).astype(np.float32)
-    _close(gpt._rmsnorm(torch.from_numpy(h), torch.from_numpy(g)).numpy(),
+    _close(rmsnorm(torch.from_numpy(h), torch.from_numpy(g)).numpy(),
            jgpt._rmsnorm(jnp.asarray(h), jnp.asarray(g)), 1e-5)
     z = np.linspace(-6, 6, 101, dtype=np.float32)
     _close(torch.nn.functional.gelu(torch.from_numpy(z), approximate="tanh").numpy(),
            jax.nn.gelu(jnp.asarray(z)), 1e-6)
     # bf16: rope's tables are cast before the multiply, as in JAX
     xb = jnp.asarray(x, dtype=jnp.bfloat16)
-    got = gpt._rope(torch.tensor(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16),
-                    10000.0)
+    got = rope(torch.tensor(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16),
+               10000.0)
     _close(got.float().numpy(), jgpt._rope(xb, 10000.0).astype(jnp.float32), 1e-2)
 
 
@@ -238,7 +238,7 @@ def test_one_unbind_reaches_each_stacked_leaf(remat):
               gpt.init_params(torch.Generator().manual_seed(0), cfg).items()}
     tok = torch.randint(0, cfg.vocab_size, (2, 16),
                         generator=torch.Generator().manual_seed(1))
-    stacked = {k: params[k] for k in gpt._LAYER_KEYS}
+    stacked = {k: params[k] for k in gpt.LAYER_KEYS}
     assert set(stacked) == {k for k, s in gpt.param_shapes(cfg).items()
                             if len(s) > 1 and s[0] == cfg.n_layer}
     loss = gpt.loss_fn(params, tok, tok, cfg, remat=remat)
@@ -255,7 +255,7 @@ def test_one_unbind_reaches_each_stage_leaf():
     cfg = _small()
     full = gpt.init_params(torch.Generator().manual_seed(0), cfg)
     local = {k: full[k][:2].clone().requires_grad_(True)
-             for k in gpt._LAYER_KEYS}
+             for k in gpt.LAYER_KEYS}
     x = torch.randn(2, 16, cfg.n_embd, generator=torch.Generator().manual_seed(1))
     out = pipeline._run_local_stack(local, x, cfg, flash_attention)
     assert edges_into(out.square().mean(), local) == \

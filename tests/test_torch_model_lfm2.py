@@ -9,7 +9,7 @@ plain versions (ops/moe_gemm.py). Tolerances as in the JAX parity tests:
 all of magnitudes near one. Also: the conv's causality, the layer under
 total skew, the expert bias, one DiLoCo outer step over the new leaves,
 tp, pp and sp refused, the Zipf token law, and the GPT and Llama losses
-bit for bit what they were before `_rmsnorm` took an eps.
+bit for bit what they were before rmsnorm took an eps.
 """
 
 import math
@@ -21,7 +21,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from pccl_tpu_torch import models
 from pccl_tpu_torch.models import gpt, lfm2, llama
+from pccl_tpu_torch.models._common import dense_attention, rope
 from pccl_tpu_torch.ops import flash_attention as fa
 from pccl_tpu_torch.ops import moe, moe_gemm
 from pccl_tpu_torch.parallel import diloco, pipeline, train
@@ -183,7 +185,7 @@ def test_train_step_and_one_outer_step():
     parameters, AdamW and the outer vector; the outer step is DiLoCo's."""
     cfg = lfm2.tiny_config()
     state = train.make_train_state(0, cfg, "cpu", lr=1e-3)
-    assert train.family(cfg) is lfm2
+    assert models.family(cfg) is lfm2
     assert set(state.buffers) == {"moe_bias"} and "moe_bias" not in state.params
     opt_params = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
     assert opt_params == {id(p) for p in state.params.values()}
@@ -267,7 +269,7 @@ def test_zipf_law_is_seeded_and_follows_one_over_rank():
     assert not torch.equal(a, c)
 
 
-# ------------------------------------------------------------ _rmsnorm's eps
+# ------------------------------------------------------------ rmsnorm's eps
 
 def _rmsnorm_before(x, gain):
     xf = x.float()
@@ -281,10 +283,10 @@ def _llama_block_before(x, layer, cfg, attn_fn=None, pos_offset=0, tp=None):
     h = _rmsnorm_before(x, layer["ln1_g"])
     q = (h @ layer["attn_q"].to(h.dtype)).reshape(B, T, -1, Dh)
     k, v = (h @ layer["attn_kv"].to(h.dtype)).chunk(2, dim=-1)
-    q = gpt._rope(q, cfg.rope_theta, pos_offset)
-    k = gpt._rope(k.reshape(B, T, -1, Dh), cfg.rope_theta, pos_offset)
+    q = rope(q, cfg.rope_theta, pos_offset)
+    k = rope(k.reshape(B, T, -1, Dh), cfg.rope_theta, pos_offset)
     v = v.reshape(B, T, -1, Dh)
-    att = (attn_fn or llama._attention)(q, k, v).reshape(B, T, -1)
+    att = (attn_fn or dense_attention)(q, k, v).reshape(B, T, -1)
     x = x + att @ layer["attn_out"].to(x.dtype)
     h = _rmsnorm_before(x, layer["ln2_g"])
     gated = F.silu(h @ layer["mlp_gate"].to(h.dtype)) * (h @ layer["mlp_up"].to(h.dtype))
@@ -301,10 +303,11 @@ def test_gpt_and_llama_losses_are_what_they_were(family, dtype, monkeypatch):
     tok = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
     tgt = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
     now, g_now = _grads(lambda p: mod.loss_fn(p, tok, tgt, cfg, fa.flash_attention), params)
-    monkeypatch.setattr(gpt, "_rmsnorm", _rmsnorm_before)
-    monkeypatch.setattr(llama, "_rmsnorm", _rmsnorm_before)
+    # the name each family's blocks look rmsnorm up by
+    monkeypatch.setattr(gpt, "rmsnorm", _rmsnorm_before)
+    monkeypatch.setattr(llama, "rmsnorm", _rmsnorm_before)
     if family == "llama":
-        monkeypatch.setattr(llama, "_block", _llama_block_before)
+        monkeypatch.setattr(llama, "block", _llama_block_before)
     before, g_before = _grads(lambda p: mod.loss_fn(p, tok, tgt, cfg, fa.flash_attention),
                               params)
     assert now == before

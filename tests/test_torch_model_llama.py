@@ -10,6 +10,7 @@ group of Llama-700m). Tolerances: 1e-4 on logits, losses and gradients, as
 in the GPT tests, all of magnitudes of order one.
 """
 
+import dataclasses
 from functools import partial
 
 import numpy as np
@@ -25,7 +26,8 @@ from pccl_tpu.ops import flash_attention as jax_flash
 from pccl_tpu.parallel import codec as jcodec
 from pccl_tpu.parallel import mesh as mesh_lib
 from pccl_tpu.parallel import train as jtrain
-from pccl_tpu_torch.models import convert, gpt, llama
+from pccl_tpu_torch import models
+from pccl_tpu_torch.models import convert, gpt, lfm2, llama
 from pccl_tpu_torch.ops.flash_attention import flash_attention
 from pccl_tpu_torch.parallel import codec, train
 from torch_layer_views import edges_into, indexed_hidden
@@ -198,6 +200,21 @@ def test_codec_order_and_opt_state_leaves_match_optax():
                                rtol=0, atol=3 * LR)
 
 
+@pytest.mark.parametrize("mod", [gpt, llama, lfm2, None],
+                         ids=["gpt", "llama", "lfm2", "unknown"])
+def test_family_finds_the_module_of_a_config(mod):
+    """models.family maps each config type to its module, and the train
+    step's `family` is the same lookup; a type it does not know raises
+    TypeError instead of training as GPT."""
+    assert train.family is models.family
+    if mod is None:
+        unknown = dataclasses.make_dataclass("MambaConfig", [("n_layer", int, 2)])()
+        with pytest.raises(TypeError, match="MambaConfig"):
+            models.family(unknown)
+        return
+    assert models.family(mod.tiny_config()) is mod
+
+
 def test_three_adamw_steps_match_jax():
     """The train step dispatches on the family: three AdamW steps from the
     same Llama weights on the same batches, fp32, held as test_torch_train
@@ -208,7 +225,6 @@ def test_three_adamw_steps_match_jax():
     widths there are 0.01-0.06 % of them (measured); G = 3's gradients are
     held to 1e-4 by test_loss_and_grads_match_jax."""
     jcfg, tcfg = _configs(2)
-    assert train.family(tcfg) is llama and train.family(gpt.tiny_config()) is gpt
     mesh = mesh_lib.make_mesh(jax.devices()[:1], ("dp", "tp"), shape=(1, 1))
     jparams, tx, opt_state = jtrain.make_train_state(
         jax.random.PRNGKey(0), jcfg, mesh, lr=LR)
@@ -323,7 +339,7 @@ def test_one_unbind_reaches_each_stacked_leaf(remat):
               llama.init_params(torch.Generator().manual_seed(0), cfg).items()}
     tok = torch.randint(0, cfg.vocab_size, (2, 16),
                         generator=torch.Generator().manual_seed(1))
-    stacked = {k: params[k] for k in llama._LAYER_KEYS}
+    stacked = {k: params[k] for k in llama.LAYER_KEYS}
     assert set(stacked) == {k for k, s in llama.param_shapes(cfg).items()
                             if len(s) > 1 and s[0] == cfg.n_layer}
     loss = llama.loss_fn(params, tok, tok, cfg, remat=remat)

@@ -172,9 +172,9 @@ def test_diloco_1b_host_bytes():
 
 
 def test_smoke_free_ports_skips_bases_past_65535(monkeypatch):
-    """chip_smoke's port picker: a kernel may hand out a base so high that
-    base + 2004 (a native_bench peer's bench port) passes 65535; such a
-    base is skipped, not raised on."""
+    """chip_smoke's port picker (portbench.run.free_ports): a kernel may
+    hand out a base so high that base + 2004 (a native_bench peer's bench
+    port) passes 65535; such a base is skipped, not raised on."""
     import socket
     import sys
     from pathlib import Path
@@ -192,7 +192,7 @@ def test_smoke_free_ports_skips_bases_past_65535(monkeypatch):
                 return real.bind(self, ("127.0.0.1", 64999))
             return real.bind(self, addr)
 
-    monkeypatch.setattr(chip_smoke.socket, "socket", HighFirst)
+    monkeypatch.setattr(socket, "socket", HighFirst)
     bases = chip_smoke.free_ports(2, offsets=chip_smoke.BENCH_OFFSETS)
     assert handed == [64999] and 64999 not in bases
     assert all(b + max(chip_smoke.BENCH_OFFSETS) <= 65535 for b in bases)

@@ -112,8 +112,8 @@ def test_block_calls_per_step(remat, n_layer, monkeypatch):
     sqrt is True's 2L); the forward alone always L."""
     _, tcfg, _, tp, tok, tgt = _setup("gpt", n_layer, T=32)
     calls = []
-    block = gpt._block
-    monkeypatch.setattr(gpt, "_block", lambda *a, **k: calls.append(1) or block(*a, **k))
+    block = gpt.block
+    monkeypatch.setattr(gpt, "block", lambda *a, **k: calls.append(1) or block(*a, **k))
     tp = {k: v.requires_grad_(True) for k, v in tp.items()}
     loss = gpt.loss_fn(tp, torch.from_numpy(tok), torch.from_numpy(tgt), tcfg,
                        attn_fn=flash_attention, remat=remat)

@@ -34,6 +34,7 @@ from pccl_tpu.ops.ring_attention import ring_attention as jring_attention
 from pccl_tpu.parallel import mesh as jmesh
 from pccl_tpu.parallel import train as jtrain
 from pccl_tpu_torch.models import gpt
+from pccl_tpu_torch.models._common import rope
 from pccl_tpu_torch.parallel import mesh as mesh_lib
 from pccl_tpu_torch.parallel import train
 
@@ -213,9 +214,9 @@ def test_remat_modes_give_the_grads_of_no_remat(world, mode):
 def test_rope_offset_is_a_slice_of_the_full_sequence(dtype):
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 48, 4, 16)).astype(np.float32)).to(dtype)
-    full = gpt._rope(x, 10000.0)
+    full = rope(x, 10000.0)
     for a, b in ((0, 16), (16, 32), (8, 48)):
-        assert torch.equal(full[:, a:b], gpt._rope(x[:, a:b], 10000.0, pos_offset=a))
+        assert torch.equal(full[:, a:b], rope(x[:, a:b], 10000.0, pos_offset=a))
 
 
 def test_factor_mesh_matches_jax():

@@ -333,12 +333,14 @@ def test_make_mesh_over_dp_tp_matches_jax(world):
 
 def test_specs_are_the_jax_rules():
     """The port's tp rules name the same split dim as JAX's specs."""
-    for port, jax_specs in ((mesh_lib.GPT_PARAM_SPECS, jmesh.GPT_PARAM_SPECS),
-                            (mesh_lib.LLAMA_PARAM_SPECS, jmesh.LLAMA_PARAM_SPECS)):
+    untied = {**jmesh.GPT_PARAM_SPECS, "head": jmesh._GPT_HEAD_SPEC}
+    for port, jax_specs in (
+            (gpt.tp_specs(gpt.tiny_config(), 1), jmesh.GPT_PARAM_SPECS),
+            (gpt.tp_specs(gpt.tiny_config(untie_head=True), 1), untied),
+            (llama.tp_specs(llama.tiny_config(), 1), jmesh.LLAMA_PARAM_SPECS)):
         assert set(port) == set(jax_specs)
         for name, spec in port.items():
             assert tuple(spec) == tuple(jax_specs[name]), name
-    assert tuple(mesh_lib._GPT_HEAD_SPEC) == tuple(jmesh._GPT_HEAD_SPEC)
 
 
 def test_no_tp_group_is_the_unsharded_model():

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import collections
 
-from pccl_tpu_torch.models import gpt
-from pccl_tpu_torch.models._common import embed, run_blocks
+from pccl_tpu_torch.models._common import embed, rmsnorm, run_blocks
 
 
 def indexed_hidden(mod):
@@ -20,10 +19,10 @@ def indexed_hidden(mod):
                tp=None):
         assert tp is None
         x = embed(params["tok_emb"], tokens, cfg.compute_dtype)
-        x = run_blocks(lambda h, layer: mod._block(
-            h, {k: params[k][layer] for k in mod._LAYER_KEYS}, cfg, attn_fn,
+        x = run_blocks(lambda h, layer: mod.block(
+            h, {k: params[k][layer] for k in mod.LAYER_KEYS}, cfg, attn_fn,
             pos_offset), x, cfg.n_layer, remat)
-        return gpt._rmsnorm(x, params["lnf_g"])
+        return rmsnorm(x, params["lnf_g"])
 
     return hidden
 

@@ -412,7 +412,7 @@ def pp_cases(rank: int, inputs: dict) -> dict:
         cfg = gpt.GPTConfig(**inputs["cfg"], compute_dtype=dtype)
         full = convert.params_from_numpy(np_params, cfg, device="cpu")
         local = {**full, **pipeline.shard_layer_params(
-            {k: full[k] for k in gpt._LAYER_KEYS}, mesh)}
+            {k: full[k] for k in gpt.LAYER_KEYS}, mesh)}
         return cfg, local, torch.from_numpy(tokens)
 
     def forward(S, M, dtype):
@@ -431,7 +431,7 @@ def pp_cases(rank: int, inputs: dict) -> dict:
             -1, tok[..., None].long())[..., 0].mean()
         loss.backward()
         layers = {k: mesh_lib.gather_all(local[k].grad, mesh.group("pp"))
-                  for k in gpt._LAYER_KEYS}
+                  for k in gpt.LAYER_KEYS}
         out = {k: _np(torch.cat(v)) for k, v in layers.items()}
         out.update({k: _np(local[k].grad) for k in ("tok_emb", "lnf_g")})
         return loss.item(), out
